@@ -5,23 +5,32 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. ``device``: the card, torch, ``nvidia-smi``'s name and power limit, and
    the build of the CUDA kernels from ``src/repro_torch/csrc``;
-2. ``kernels``: every kernel of the main path against its plain PyTorch
-   version on the card, at the reference's sweep shapes and at the main
-   path's shapes, with the kernel's, the plain version's and one library
+2. ``kernels``: every kernel of the two paths below against its plain
+   PyTorch version on the card, at the reference's sweep shapes and at the
+   paths' shapes, with the kernel's, the plain version's and one library
    call's times beside the least time the card could take;
 3. ``main``: 3 ZeRO steps of full-width granite-3-2b under the DynaComm
    plan, with the kernels' launches in those steps asserted against the
    plan;
-4. ``configs``: the checked-in ``zero.json`` / ``local.json`` smoke configs
-   through the launcher; zero against local to fp32 tolerance, and zero
-   bitwise across the four scheduling strategies.
+4. ``ps``: 3 synchronous-PS steps of full-width granite-3-2b with int8
+   pushes, then 3 with top-k (fraction 0.01) pushes, under the consensus
+   plan of ``ps.json``'s topology, with every kernel's launches asserted
+   against the plan and the push compression ratio against its formula;
+   each path again from the same seed with the round trip composed from
+   the plain versions, whose losses must equal the kernel path's bitwise;
+5. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
+   smoke configs through the launcher (``ps.json`` plain, int8 and top-k);
+   zero against local to fp32 tolerance, zero bitwise across the four
+   scheduling strategies, and plain ps bitwise equal to zero; then
+   ``ps.json`` plain, int8 and top-k on the card against the port on the
+   CPU from one initial state, to a stated tolerance.
 
 The last lines are ``nvidia-smi``'s line, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
 
     python3 chip_smoke.py                   # everything, as a check
-    python3 chip_smoke.py --profile         # also trace one main-path step
+    python3 chip_smoke.py --profile         # also trace one step per path
 """
 
 from __future__ import annotations
@@ -46,10 +55,15 @@ PEAK_FLOPS = {torch.float32: 67e12,       # fp32 outside the tensor cores
               torch.bfloat16: 989e12}     # dense bf16 tensor cores
 F32_ATOL, BF16_ATOL = 2e-6, 2e-2          # tests/test_kernels.py tolerances
 LOSS_RTOL = 1e-5                          # zero vs local: another sum order
+CARD_CPU_RTOL = 2e-6     # ps.json card vs CPU, 5x the largest gap measured
 STEPS = 3
 
 MAIN = dict(runtime="zero", arch="granite-3-2b", reduced=False, batch=2,
             seq=1024, optimizer="adamw")
+PS = dict(MAIN, runtime="ps")              # + ps.json's topology (default)
+TOPK_FRACTION = 0.01
+PS_SCHEMES = (("int8", ("compress_quantize", "compress_dequantize")),
+              ("topk", ("compress_sparsify", "compress_densify")))
 PACK_SWEEP = ((512,), (512, 1024), (2048, 512, 512, 1024), (512,) * 7,
               (100, 700, 513))
 # (b, h, hkv, t, hd, causal, window, softcap): the reference's sweep
@@ -67,10 +81,18 @@ REPLACES = {
     "bucket_unpack": "src/repro/kernels/bucket_pack/bucket_pack.py:124",
     "flash_attention_fwd":
         "src/repro/kernels/flash_attention/flash_attention.py:111",
+    "compress_quantize": "src/repro/kernels/compress/compress.py:81",
+    "compress_dequantize": "src/repro/kernels/compress/compress.py:137",
+    "compress_sparsify": "src/repro/kernels/compress/compress.py:178",
+    "compress_densify": "src/repro/kernels/compress/compress.py:210",
 }
 SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
-           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu"}
+           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+           "compress_quantize": "src/repro_torch/csrc/compress.cu",
+           "compress_dequantize": "src/repro_torch/csrc/compress.cu",
+           "compress_sparsify": "src/repro_torch/csrc/compress.cu",
+           "compress_densify": "src/repro_torch/csrc/compress.cu"}
 
 
 def say(phase: str, msg: str) -> None:
@@ -99,7 +121,8 @@ def free_cuda() -> None:
 
 
 def bits(x: torch.Tensor) -> torch.Tensor:
-    return x.view({4: torch.int32, 2: torch.int16}[x.element_size()])
+    return x.view({4: torch.int32, 2: torch.int16,
+                   1: torch.int8}[x.element_size()])
 
 
 def assert_bitwise(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
@@ -319,6 +342,153 @@ def check_flash(gen, dev, arch) -> dict:
     return {"flash_attention_fwd": rec}
 
 
+COMPRESS_SWEEP = ((512,), (512, 1024), (2048, 512, 512, 1024), (512,) * 7,
+                  (1536, 512, 1024))
+
+
+def check_compress_kernels(gen, dev) -> None:
+    """The four compression kernels bitwise against their plain versions:
+    ragged rows with a tiny tile, an all-zero tile, a NaN tile and an inf,
+    the error-feedback residual, and top-k rows with -1 slots and chosen
+    -0.0 values."""
+    from repro_torch.kernels.compress import ops, ref
+    for lengths in COMPRESS_SWEEP:
+        lmax = max(lengths)
+        segs = torch.randn(len(lengths), lmax, generator=gen, device=dev)
+        segs *= 10.0 ** torch.randint(-3, 3, (len(lengths), 1), generator=gen,
+                                      device=dev)
+        segs[0, :512] *= 1e-30
+        if len(lengths) > 1:
+            segs[1, :512] = 0.0                      # all-zero tile
+        if len(lengths) > 2:
+            segs[2, 7] = float("nan")                # NaN tile
+        if len(lengths) > 3:
+            segs[3, 3] = float("inf")
+        payload, scales = ops.quantize_pack(segs, lengths)
+        want_p, want_s = ref.quantize_pack_ref(segs, lengths)
+        assert_bitwise(payload, want_p, f"compress_quantize {lengths}")
+        assert_bitwise(scales, want_s, f"compress_quantize scales {lengths}")
+        assert_bitwise(ops.dequantize_unpack(payload, scales, lengths, lmax),
+                       ref.dequantize_unpack_ref(payload, scales, lengths,
+                                                 lmax),
+                       f"compress_dequantize {lengths}")
+        corrected = segs[0, :lengths[0] - 5].contiguous()
+        residual = torch.empty_like(corrected)
+        ops.dequantize_unpack(payload, scales, lengths, lmax,
+                              feedback=(corrected, residual))
+        assert_bitwise(residual, ref.feedback_residual_ref(
+            corrected, payload, scales), f"feedback residual {lengths}")
+    segs = torch.round(torch.randn(3, 4096, generator=gen, device=dev) * 3)
+    segs[2, :100] = -0.0
+    segs[2, 10:20] = 1.0
+    lengths = (4096, 3000, 100)
+    for k in (1, 64, 700):
+        idx = ops.topk_indices(segs, lengths, k)
+        if not torch.equal(idx.cpu(), ops.topk_indices(segs.cpu(), lengths,
+                                                        k)):
+            raise AssertionError(f"topk_indices k={k}: card != host")
+        vals = ops.sparsify(segs, idx)
+        assert_bitwise(vals, ref.sparsify_ref(segs, idx),
+                       f"compress_sparsify k={k}")
+        assert_bitwise(ops.densify(vals, idx, 4096),
+                       ref.densify_ref(vals, idx, 4096),
+                       f"compress_densify k={k}")
+    neg_zero = (bits(vals) == bits(torch.tensor(-0.0, device=dev))).sum()
+    if not ((idx == -1).any() and neg_zero > 0):
+        raise AssertionError("the top-k sweep chose no -0.0 or left no -1")
+    say("kernels", f"compress_quantize / _dequantize (and the feedback "
+                   f"residual) bitwise on {len(COMPRESS_SWEEP)} ragged sweeps "
+                   f"with zero, tiny, NaN and inf tiles; compress_sparsify / "
+                   f"_densify bitwise at k = 1, 64, 700 with "
+                   f"{int((idx == -1).sum())} -1 slots and {int(neg_zero)} "
+                   f"chosen -0.0")
+
+
+def time_compress_kernels(gen, dev, specs) -> dict:
+    """The four kernels at the paths' largest sched layer, the embedding,
+    as the compressor calls them (top-k at fraction 0.01)."""
+    from repro_torch.kernels.compress import ops, ref
+    n = max(s.padded for s in specs)
+    npad = ops.aligned(n)
+    ntiles = npad // ops.TILE
+    seg = torch.randn(1, npad, generator=gen, device=dev) * 1e-3
+    iters = 5
+    out = {}
+
+    payload, scales = ops.quantize_pack(seg, (npad,))
+    want = ref.quantize_pack_ref(seg, (npad,))
+    assert_bitwise(payload, want[0], "compress_quantize at the embedding")
+    assert_bitwise(scales, want[1], "compress_quantize scales at the "
+                                    "embedding")
+    del want
+    out["compress_quantize"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: ops.quantize_pack(seg, (npad,)), iters),
+        plain_ms=cuda_ms(lambda: ref.quantize_pack_ref(seg, (npad,)), iters),
+        library_ms=None,
+        bound_ms=(4 * npad + npad + 4 * ntiles) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+
+    # the error-feedback form the compressor runs: also writes the residual
+    corrected = seg[0, :n]
+    residual = torch.empty(n, device=dev)
+
+    def dequantize():
+        return ops.dequantize_unpack(payload, scales, (npad,), npad,
+                                     feedback=(corrected, residual))
+
+    def dequantize_plain():
+        return (ref.dequantize_unpack_ref(payload, scales, (npad,), npad),
+                ref.feedback_residual_ref(corrected, payload, scales))
+
+    got = dequantize()
+    want = dequantize_plain()
+    assert_bitwise(got, want[0], "compress_dequantize at the embedding")
+    assert_bitwise(residual, want[1], "feedback residual at the embedding")
+    del got, want
+    out["compress_dequantize"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(dequantize, iters),
+        plain_ms=cuda_ms(dequantize_plain, iters), library_ms=None,
+        bound_ms=(npad + 4 * ntiles + 4 * npad + 8 * n)
+        / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    del payload, scales, residual
+    free_cuda()
+
+    row = seg[:, :n]
+    k = max(1, math.ceil(TOPK_FRACTION * n))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    idx = ops.topk_indices(row, (n,), k)
+    end.record()
+    end.synchronize()
+    sort_ms = start.elapsed_time(end)
+    idx_long = idx.long()
+    vals = ops.sparsify(row, idx)
+    assert_bitwise(vals, ref.sparsify_ref(row, idx),
+                   "compress_sparsify at the embedding")
+    slots = int((idx >= 0).sum())
+    out["compress_sparsify"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: ops.sparsify(row, idx), 20),
+        plain_ms=cuda_ms(lambda: ref.sparsify_ref(row, idx), 20),
+        library_ms=cuda_ms(lambda: torch.gather(row, 1, idx_long), 20),
+        bound_ms=(4 * k + 4 * slots + 4 * k) / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    assert_bitwise(ops.densify(vals, idx, n), ref.densify_ref(vals, idx, n),
+                   "compress_densify at the embedding")
+    out["compress_densify"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: ops.densify(vals, idx, n), iters),
+        plain_ms=cuda_ms(lambda: ref.densify_ref(vals, idx, n), iters),
+        library_ms=cuda_ms(lambda: torch.zeros(1, n, device=dev).scatter_(
+            1, idx_long, vals), iters),
+        bound_ms=(8 * k + 4 * n) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    say("kernels", f"compress kernels at the embedding: {n} f32 = {ntiles} "
+                   f"tiles; top-k k = {k} ({TOPK_FRACTION}); topk_indices "
+                   f"(stable sort, no kernel) {sort_ms:.3f} ms")
+    return out
+
+
 def phase_kernels(arch, plan, specs) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -327,10 +497,14 @@ def phase_kernels(arch, plan, specs) -> dict:
     free_cuda()
     records.update(check_flash(gen, dev, arch))
     free_cuda()
+    check_compress_kernels(gen, dev)
+    records.update(time_compress_kernels(gen, dev, specs))
+    free_cuda()
     for name, r in records.items():
+        lib = r["library_ms"]
         say("kernels", f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
-                       f" library {r['library_ms']:.4f}, bound "
-                       f"{r['bound_ms']:.4f} by {r['bound_by']})")
+                       f" library {'none' if lib is None else f'{lib:.4f}'},"
+                       f" bound {r['bound_ms']:.4f} by {r['bound_by']})")
     return records
 
 
@@ -368,9 +542,7 @@ def phase_main(profile: bool) -> dict:
         secs.append(time.perf_counter() - t0)
     counts = launch_counts()
 
-    expect = {"bucket_pack": STEPS * (len(plan.forward) + len(plan.backward)),
-              "bucket_unpack": STEPS * len(plan.forward),
-              "flash_attention_fwd": STEPS * 2 * arch.num_layers}
+    expect = expected_launches(plan, arch, ())
     if counts != expect:
         raise AssertionError(f"launches {counts} != expected {expect}")
     if not all(math.isfinite(x) for x in losses):
@@ -390,7 +562,153 @@ def phase_main(profile: bool) -> dict:
     return counts
 
 
-def profile_step(rt, steady: float) -> None:
+def expected_launches(plan, arch, compress) -> dict:
+    """Kernel launches over STEPS steps of a plan: one pack per bucket,
+    one unpack per pull bucket, the flash forward twice per block (forward
+    and recompute), and one launch of each ``compress`` kernel per sched
+    layer."""
+    per_step = {"bucket_pack": len(plan.forward) + len(plan.backward),
+                "bucket_unpack": len(plan.forward),
+                "flash_attention_fwd": 2 * arch.num_layers}
+    layers = sum(len(b) for b in plan.backward)
+    for name in PS_SCHEMES[0][1] + PS_SCHEMES[1][1]:
+        per_step[name] = layers if name in compress else 0
+    return {name: STEPS * n for name, n in per_step.items()}
+
+
+def reference_push_ratio(specs, plan, scheme: str) -> float:
+    """The reference's push compression ratio of one plan
+    (``runtime/adapters.py::_plan_ledger`` over ``compress/compressor.py``'s
+    wire formulas), computed here from the layer sizes alone."""
+    push = wire = 0
+    for bucket in plan.backward:
+        w = 0.0
+        for l in bucket:
+            n = specs[l].total
+            push += 4 * n
+            w += (n + 4.0 * math.ceil(n / 512) if scheme == "int8" else
+                  8.0 * max(1.0, math.ceil(TOPK_FRACTION * n)))
+        wire += int(round(w + (8.0 if scheme == "topk" else 0.0)))
+    return push / wire
+
+
+def plain_compressor(scheme: str):
+    """The compressor of ``scheme`` with its error-feedback round trip
+    composed from the plain versions (``kernels/compress/ref.py``), out
+    of place: an independent witness of the kernel path's composition
+    (pad, residual add in place, the residual written by the dequantize
+    kernel, the compressed rows).  ``topk_indices`` is shared: it is a
+    torch op on both routes, held against the reference on the CPU."""
+    from repro_torch.compress import Int8Compressor, TopKCompressor
+    from repro_torch.kernels.compress import ref
+    from repro_torch.kernels.compress.ops import aligned, topk_indices
+
+    @dataclasses.dataclass(frozen=True)
+    class PlainInt8(Int8Compressor):
+        def feedback_roundtrip(self, flat, residual):
+            corrected = flat + residual
+            n = corrected.numel()
+            npad = aligned(n)
+            seg = torch.nn.functional.pad(corrected, (0, npad - n))[None]
+            q, s = ref.quantize_pack_ref(seg, (npad,))
+            out = ref.dequantize_unpack_ref(q, s, (npad,), npad)[0, :n]
+            residual.copy_(ref.feedback_residual_ref(corrected, q, s))
+            return out, residual
+
+    @dataclasses.dataclass(frozen=True)
+    class PlainTopK(TopKCompressor):
+        def feedback_roundtrip(self, flat, residual):
+            corrected = flat + residual
+            n = corrected.numel()
+            row = corrected[None]
+            idx = topk_indices(row, (n,), self.k_for(n))
+            out = ref.densify_ref(ref.sparsify_ref(row, idx), idx, n)[0]
+            residual.copy_(corrected - out)
+            return out, residual
+
+    if scheme == "int8":
+        return PlainInt8(error_feedback=True)
+    return PlainTopK(error_feedback=True, fraction=TOPK_FRACTION)
+
+
+def phase_ps(profile: bool) -> dict:
+    """3 steps each of the int8 and the top-k push at full width."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import (CompressionConfig, RuntimeConfig,
+                                     build_runtime)
+    card = torch.cuda.get_device_properties(0).total_memory
+    counts_by_scheme = {}
+    for scheme, names in PS_SCHEMES:
+        config = RuntimeConfig(**PS, compression=CompressionConfig(
+            scheme, topk_fraction=TOPK_FRACTION if scheme == "topk"
+            else None))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rt = build_runtime(config)
+        torch.cuda.synchronize()
+        plan, arch = rt.plan, rt.arch
+        topo = rt.trainer.topology
+        say("ps", f"{scheme}: {topo.num_servers} servers x "
+                  f"{topo.num_workers} worker; consensus plan "
+                  f"{len(plan.forward)} pull buckets "
+                  f"{[len(b) for b in plan.forward]}, {len(plan.backward)} "
+                  f"push buckets {[len(b) for b in plan.backward]}; built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        reset_launch_counts()
+        losses, secs = [], []
+        for _ in range(STEPS):
+            t0 = time.perf_counter()
+            losses.extend(rt.fit(1))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        expect = expected_launches(plan, arch, names)
+        if counts != expect:
+            raise AssertionError(f"ps/{scheme} launches {counts} != "
+                                 f"expected {expect}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"ps/{scheme}: non-finite losses {losses}")
+        ratio = rt.ledger["push_compression_ratio"]
+        want = reference_push_ratio(rt.trainer.specs, plan, scheme)
+        if ratio != want:
+            raise AssertionError(f"ps/{scheme}: push ratio {ratio!r} != the "
+                                 f"formula's {want!r}")
+        peak = torch.cuda.max_memory_allocated()
+        if not peak < card:
+            raise AssertionError(f"ps/{scheme}: peak {peak} >= card {card}")
+        steady = sum(secs[1:]) / len(secs[1:])
+        tokens = config.batch * config.seq
+        say("ps", f"{scheme}: losses {losses}")
+        say("ps", f"{scheme}: step seconds {[round(x, 4) for x in secs]}; "
+                  f"steady {steady * 1e3:.1f} ms/step (steps 2-{STEPS}), "
+                  f"{tokens / steady:.1f} tokens/s; peak memory "
+                  f"{peak / 2**30:.2f} GiB of {card / 2**30:.2f}; push "
+                  f"ratio {ratio:.4f}x == formula")
+        say("ps", f"{scheme}: launches over {STEPS} steps {counts} == plan")
+        counts_by_scheme[scheme] = counts
+        if profile:
+            profile_step(rt, steady, f"profile ps/{scheme}")
+        del rt
+        free_cuda()
+        # the same steps from the same seed, pushing through the plain
+        # composition of the round trip: the losses must not change a bit
+        rt = build_runtime(config)
+        rt.trainer = dataclasses.replace(rt.trainer,
+                                         compressor=plain_compressor(scheme))
+        plain = rt.fit(STEPS)
+        del rt
+        free_cuda()
+        if plain != losses:
+            gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+            raise AssertionError(f"ps/{scheme}: kernel path losses {losses} "
+                                 f"!= plain round trip {plain} (largest "
+                                 f"relative gap {gap:.3g})")
+        say("ps", f"{scheme}: the plain round trip (ref.py, out of place) "
+                  f"gives the same {STEPS} losses bitwise")
+    return counts_by_scheme
+
+
+def profile_step(rt, steady: float, phase: str = "profile") -> None:
     """One more step under ``torch.profiler``: device time by kernel, and
     the device's idle share of an untraced steady step."""
     from torch.autograd import DeviceType
@@ -403,14 +721,14 @@ def profile_step(rt, steady: float) -> None:
     rows = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    say("profile", f"device busy {busy * 1e3:.1f} ms per step = "
-                   f"{100 * busy / steady:.1f}% of the untraced steady "
-                   f"step ({steady * 1e3:.1f} ms); idle "
-                   f"{100 * max(0.0, 1 - busy / steady):.1f}%")
+    say(phase, f"device busy {busy * 1e3:.1f} ms per step = "
+               f"{100 * busy / steady:.1f}% of the untraced steady "
+               f"step ({steady * 1e3:.1f} ms); idle "
+               f"{100 * max(0.0, 1 - busy / steady):.1f}%")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:12]:
-        say("profile", f"{e.self_device_time_total / 1e3:9.2f} ms "
-                       f"{e.count:5d}x  {e.key[:80]}")
+        say(phase, f"{e.self_device_time_total / 1e3:9.2f} ms "
+                   f"{e.count:5d}x  {e.key[:80]}")
 
 
 # ---------------------------------------------------------------------------
@@ -418,19 +736,69 @@ def profile_step(rt, steady: float) -> None:
 # ---------------------------------------------------------------------------
 
 
+def card_against_cpu(config) -> tuple:
+    """``STEPS`` losses of ``config`` on the card and on the CPU (plain
+    versions, held bitwise to the reference there) from one initial
+    state, drawn on the CPU and restored on the card; the batches are
+    numpy's on both.  Returns (largest relative gap, card, CPU)."""
+    import tempfile
+    from repro_torch.runtime import build_runtime
+    dist = torch.distributed
+    (ROOT / "build").mkdir(exist_ok=True)               # ignored by git
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "init.npz")
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        cpu_rt = build_runtime(config, device="cpu")      # a gloo group
+        cpu_rt.save_state(path)
+        cpu = cpu_rt.fit(STEPS)
+        dist.destroy_process_group()
+        card_rt = build_runtime(config)                   # an NCCL group
+        card_rt.restore_state(path)
+        card = card_rt.fit(STEPS)
+        dist.destroy_process_group()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    return gap, card, cpu
+
+
 def phase_configs() -> None:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import main as train_main
-    from repro_torch.runtime import RuntimeConfig, build_runtime
+    from repro_torch.runtime import (CompressionConfig, RuntimeConfig,
+                                     build_runtime)
     cfgs = ROOT / "examples" / "runtime_configs"
     reset_launch_counts()
     zero = train_main(["--config", str(cfgs / "zero.json"), "--steps",
                        str(STEPS), "--log-every", "0"])
     local = train_main(["--config", str(cfgs / "local.json"), "--steps",
                         str(STEPS), "--log-every", "0"])
+    ps = {scheme: train_main(["--config", str(cfgs / "ps.json"), "--steps",
+                              str(STEPS), "--log-every", "0", "--compress",
+                              scheme])
+          for scheme in ("none", "int8", "topk")}
     counts = launch_counts()
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel never ran in the configs: {counts}")
+    if ps["none"] != zero:
+        raise AssertionError(f"ps.json losses {ps['none']} != zero.json "
+                             f"{zero}: sync PS is the ZeRO step")
+    if not all(math.isfinite(x) for v in ps.values() for x in v):
+        raise AssertionError(f"non-finite ps losses {ps}")
+    say("configs", f"ps.json {ps['none']} == zero.json bitwise; int8 "
+                   f"{ps['int8']}; topk {ps['topk']}")
+    for scheme in ("none", "int8", "topk"):
+        cfg = dataclasses.replace(
+            RuntimeConfig.load(str(cfgs / "ps.json")),
+            compression=CompressionConfig(
+                scheme, TOPK_FRACTION if scheme == "topk" else None))
+        gap, card, cpu = card_against_cpu(cfg)
+        if not gap <= CARD_CPU_RTOL:
+            raise AssertionError(f"ps.json/{scheme}: card {card} vs CPU "
+                                 f"{cpu}: rel gap {gap:.3g} > "
+                                 f"{CARD_CPU_RTOL}")
+        say("configs", f"ps.json/{scheme} from one initial state: card "
+                       f"{card}, CPU {cpu}; rel gap {gap:.3g} (rtol "
+                       f"{CARD_CPU_RTOL})")
     gap = max(abs(a - b) / abs(b) for a, b in zip(zero, local))
     if not gap <= LOSS_RTOL:
         raise AssertionError(f"zero {zero} vs local {local}: rel gap "
@@ -454,7 +822,8 @@ def phase_configs() -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one extra main-path step with torch.profiler")
+                    help="trace one extra step of the main path and of each "
+                         "ps path with torch.profiler")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -463,11 +832,17 @@ def main(argv=None) -> None:
     arch, plan, specs = main_plan_specs()
     records = phase_kernels(arch, plan, specs)
     counts = phase_main(args.profile)
+    ps_counts = phase_ps(args.profile)
     phase_configs()
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
-    kernels =[dict(name=name, route="cuda", source=SOURCES[name],
+    # launches: each kernel's count on the path that runs it (the ZeRO
+    # step, the int8 push, the top-k push), read right after that path
+    for scheme, names in PS_SCHEMES:
+        for name in names:
+            counts[name] = ps_counts[scheme][name]
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]
     print(smi)

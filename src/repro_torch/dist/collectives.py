@@ -15,13 +15,15 @@ is padded to a multiple of the group size A and stored sharded as
 each layer's columns back into its full buffer (the **unpack** kernel, one
 launch per bucket at any A).  A push lays each layer's full gradient out as
 ``(A, padded // A)`` rows, concatenated along columns — built straight from
-the gradient leaves by one pack launch — and reduce-scatters it once.
+the gradient leaves by one pack launch — and reduce-scatters it once.  A
+compressed push does the same with each layer's round-tripped buffer in
+place of its gradient leaves.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -204,8 +206,16 @@ def reduce_scatter_bucket(grads: Dict[int, Any], specs: Sequence[FlatSpec],
     for r in range(axis):
         for l in bucket:
             pieces.extend(_row_pieces(flat_leaves[l], specs[l], r))
+    del flat_leaves
+    return _scatter_sum(pieces, specs, bucket, axis, group)
+
+
+def _scatter_sum(pieces: List[Union[torch.Tensor, int]],
+                 specs: Sequence[FlatSpec], bucket: Sequence[int], axis: int,
+                 group) -> Dict[int, torch.Tensor]:
+    """Pack the operand, reduce-scatter it, split this rank's row."""
     operand = pack_ragged(pieces)
-    del flat_leaves, pieces
+    pieces.clear()
     out = torch.empty(operand.numel() // axis, dtype=operand.dtype,
                       device=operand.device)
     dist.reduce_scatter_tensor(out, operand, op=dist.ReduceOp.SUM,
@@ -217,3 +227,48 @@ def reduce_scatter_bucket(grads: Dict[int, Any], specs: Sequence[FlatSpec],
         result[l] = out[off:off + w]
         off += w
     return result
+
+
+def compressed_reduce_scatter_bucket(
+        grads: Dict[int, Any], specs: Sequence[FlatSpec],
+        bucket: Sequence[int], group, compressor: Any,
+        residuals: Optional[Dict[int, torch.Tensor]] = None,
+        ) -> Tuple[Dict[int, torch.Tensor],
+                   Optional[Dict[int, torch.Tensor]]]:
+    """Push one bucket with each rank's contribution compressed first.
+
+    Models the PS wire: every worker quantizes/sparsifies its *own* full
+    flat gradient before pushing and the server sums the decompressed
+    payloads, so the reduce-scatter operand is ``compressor.roundtrip`` of
+    each local ``(padded,)`` buffer, laid out in rows as
+    :func:`reduce_scatter_bucket` lays out the gradients.  With
+    ``residuals`` (per-layer ``(padded_l,)`` local buffers, updated in
+    place) the compression error of this push is carried into the next one
+    (error feedback).
+
+    Works one layer at a time: flatten, add the residual in place,
+    round-trip, write the new residual (``corrected - compressed``, see
+    ``Compressor.feedback_roundtrip``) in place, then drop the corrected
+    buffer and the layer's gradient tree (``grads`` is consumed) before the
+    next layer, so only the compressed buffers wait for the pack.  Returns
+    ``(shards, residuals)``; the second is ``None`` iff no residuals were
+    given.
+    """
+    _check_bucket(specs, bucket, "compressed_reduce_scatter_bucket")
+    axis = _check_group(specs, bucket, group)
+    compressed: Dict[int, torch.Tensor] = {}
+    for l in bucket:
+        flat = flatten_tree(grads.pop(l), specs[l])
+        if residuals is None:
+            compressed[l] = compressor.roundtrip(flat)
+        else:
+            compressed[l], _ = compressor.feedback_roundtrip(flat,
+                                                             residuals[l])
+        del flat
+    pieces: List[Union[torch.Tensor, int]] = []
+    for r in range(axis):
+        for l in bucket:
+            w = specs[l].shard_size
+            pieces.append(compressed[l][r * w:(r + 1) * w])
+    compressed.clear()
+    return _scatter_sum(pieces, specs, bucket, axis, group), residuals

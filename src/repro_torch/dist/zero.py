@@ -15,7 +15,11 @@ training step in which
 * with ``zero3=True`` the gathered weights of the middle layers are dropped
   after the forward: every backward bucket that contains a middle layer
   re-pulls its parameters with one extra all-gather (the first / last sched
-  layers are exempt, as in the reference).
+  layers are exempt, as in the reference);
+* with a ``compressor`` every push carries each rank's round-tripped
+  (int8 or top-k) gradient instead of the gradient itself, and with error
+  feedback the compression error of each (rank, layer) is kept in
+  ``state["residuals"]`` and added to the next push.
 
 The group is the caller's default group when one is initialised;
 otherwise the trainer makes a world-1 group itself: NCCL for a CUDA
@@ -35,8 +39,10 @@ import torch.distributed as dist
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.buckets import BucketPlan, flat_layer_order
-from repro_torch.dist.collectives import (FlatSpec, flatten_tree,
-                                          gather_bucket, make_flat_spec,
+from repro_torch.dist.collectives import (FlatSpec,
+                                          compressed_reduce_scatter_bucket,
+                                          flatten_tree, gather_bucket,
+                                          make_flat_spec,
                                           reduce_scatter_bucket,
                                           unflatten_tree)
 from repro_torch.models import blocks as blocks_lib
@@ -93,8 +99,11 @@ class ZeroTrainer:
     group: Optional[Any] = None
     zero3: bool = False
     aux_weight: float = 0.01
+    compressor: Optional[Any] = None
 
     def __post_init__(self):
+        if self.compressor is not None and self.compressor.scheme == "none":
+            self.compressor = None        # identity: skip the wrapper math
         self.device = torch.device(self.device)
         if self.group is None:
             self.group = default_group(self.device)
@@ -135,6 +144,16 @@ class ZeroTrainer:
     # state
     # ------------------------------------------------------------------
 
+    @property
+    def _use_residuals(self) -> bool:
+        return self.compressor is not None and self.compressor.error_feedback
+
+    def _zero_residuals(self) -> List[torch.Tensor]:
+        """Each rank's error-feedback carry: one ``(padded,)`` buffer per
+        sched layer (row ``rank`` of the reference's ``(A, padded)``)."""
+        return [torch.zeros(spec.padded, dtype=torch.float32,
+                            device=self.device) for spec in self.specs]
+
     def _shard(self, flat: torch.Tensor, spec: FlatSpec) -> torch.Tensor:
         w = spec.shard_size
         return flat[self.rank * w:(self.rank + 1) * w].clone()
@@ -142,9 +161,13 @@ class ZeroTrainer:
     def state_from_flats(self, flats: Sequence[torch.Tensor],
                          mu: Optional[Sequence[torch.Tensor]] = None,
                          nu: Optional[Sequence[torch.Tensor]] = None,
-                         step: int = 0) -> Dict[str, Any]:
+                         step: int = 0,
+                         residuals: Optional[Sequence[torch.Tensor]] = None
+                         ) -> Dict[str, Any]:
         """A state from full ``(padded,)`` buffers (this rank keeps its
-        shard); moments default to the optimizer's fresh ones."""
+        shard); moments default to the optimizer's fresh ones, residuals
+        (whole ``(A, padded)`` arrays: this rank keeps row ``rank``) to
+        zero."""
         shards = [self._shard(f.to(self.device, torch.float32), s)
                   for f, s in zip(flats, self.specs)]
         opt = self.optimizer.init(shards)
@@ -153,9 +176,15 @@ class ZeroTrainer:
                 for buf, f, s in zip(mine, full, self.specs):
                     buf.copy_(self._shard(f.to(self.device), s))
         opt.step.fill_(step)
-        return {"flat_params": shards, "opt": opt,
-                "step": torch.full((), step, dtype=torch.int32,
-                                   device=self.device)}
+        state = {"flat_params": shards, "opt": opt,
+                 "step": torch.full((), step, dtype=torch.int32,
+                                    device=self.device)}
+        if self._use_residuals:
+            state["residuals"] = self._zero_residuals()
+            if residuals is not None:
+                for buf, whole in zip(state["residuals"], residuals):
+                    buf.copy_(whole[self.rank])
+        return state
 
     def init_state(self, gen: torch.Generator) -> Dict[str, Any]:
         """``init_params(cfg, gen)`` on the device, flattened and sharded."""
@@ -168,9 +197,12 @@ class ZeroTrainer:
             shards.append(self._shard(flatten_tree(trees[i], spec), spec))
             trees[i] = None                  # free the full layer now
         opt = self.optimizer.init(shards)
-        return {"flat_params": shards, "opt": opt,
-                "step": torch.zeros((), dtype=torch.int32,
-                                    device=self.device)}
+        state = {"flat_params": shards, "opt": opt,
+                 "step": torch.zeros((), dtype=torch.int32,
+                                     device=self.device)}
+        if self._use_residuals:
+            state["residuals"] = self._zero_residuals()
+        return state
 
     def full_flat(self, shard: torch.Tensor) -> torch.Tensor:
         """All ranks' shards of one buffer, concatenated (not on the step
@@ -187,16 +219,20 @@ class ZeroTrainer:
         opt: OptState = state["opt"]
         whole = (lambda bufs: None if bufs is None
                  else [self.full_flat(b) for b in bufs])
-        return {"flat_params": whole(state["flat_params"]),
-                "opt": OptState(step=opt.step, mu=whole(opt.mu),
-                                nu=whole(opt.nu)),
-                "step": state["step"]}
+        out = {"flat_params": whole(state["flat_params"]),
+               "opt": OptState(step=opt.step, mu=whole(opt.mu),
+                               nu=whole(opt.nu)),
+               "step": state["step"]}
+        if "residuals" in state:          # (A, padded): row r is rank r's
+            out["residuals"] = [self.full_flat(r).view(self.axis_size, -1)
+                                for r in state["residuals"]]
+        return out
 
     def local_state(self, whole) -> Dict[str, Any]:
         """Inverse of :meth:`global_state` for this rank."""
         opt = whole["opt"]
         state = self.state_from_flats(whole["flat_params"], opt.mu, opt.nu,
-                                      int(opt.step))
+                                      int(opt.step), whole.get("residuals"))
         state["step"].fill_(int(whole["step"]))
         return state
 
@@ -297,8 +333,15 @@ class ZeroTrainer:
                     bucket_grads[l] = g_block
                 if l != 0:
                     full.pop(l, None)     # this layer's weights are done
-            pushed = reduce_scatter_bucket(bucket_grads, self.specs, bucket,
-                                           self.group)
+            if self.compressor is not None:
+                pushed, _ = compressed_reduce_scatter_bucket(
+                    bucket_grads, self.specs, bucket, self.group,
+                    self.compressor,
+                    residuals=({l: state["residuals"][l] for l in bucket}
+                               if self._use_residuals else None))
+            else:
+                pushed = reduce_scatter_bucket(bucket_grads, self.specs,
+                                               bucket, self.group)
             del bucket_grads
             for l, g in pushed.items():
                 grad_shards[l] = g.div_(self.axis_size)   # sum → mean

@@ -8,14 +8,18 @@ are built at first use by :mod:`repro_torch.kernels._build`.
 * ``bucket_pack`` — ragged segment copy: builds every collective operand
   of the ZeRO step (pack) and splits every gathered bucket (unpack).
 * ``flash_attention`` — causal / windowed / softcapped attention forward.
+* ``compress`` — int8 quantize / dequantize and top-k sparsify / densify:
+  the compressed gradient push of the ``ps`` runtime.
 """
 
 from typing import Dict
 
 from repro_torch.kernels.bucket_pack import ops as _bucket_ops
+from repro_torch.kernels.compress import ops as _compress_ops
 from repro_torch.kernels.flash_attention import ops as _flash_ops
 
-_COUNTERS = (_bucket_ops.LAUNCHES, _flash_ops.LAUNCHES)
+_COUNTERS = (_bucket_ops.LAUNCHES, _flash_ops.LAUNCHES,
+             _compress_ops.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,14 +1,19 @@
 """Training launcher of the port: a thin client of ``build_runtime``.
 
 ``--config runtime.json`` builds the runtime from a checked-in
-:class:`RuntimeConfig` (``examples/runtime_configs/{local,zero}.json``);
-otherwise the flags below map onto one (``--dump-config`` prints it).  The
-run goes to the first CUDA device unless ``--device cpu`` is given.
+:class:`RuntimeConfig` (``examples/runtime_configs/{local,zero,ps}.json``);
+otherwise the flags below map onto one (``--dump-config`` prints it).  With
+``--config``, ``--compress`` (and ``--topk-fraction`` /
+``--no-error-feedback`` with it) replaces the config's compression block,
+so one checked-in PS config runs plain, int8 or top-k.  The run goes to the
+first CUDA device unless ``--device cpu`` is given.
 
 Examples::
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --config examples/runtime_configs/zero.json --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --config examples/runtime_configs/ps.json --compress int8 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --reduced --runtime zero --strategy lbl --steps 10 --device cpu
 """
@@ -16,25 +21,41 @@ Examples::
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 from repro_torch.configs import ARCHITECTURES
-from repro_torch.runtime import (ExecutionConfig, MeasureConfig,
-                                 NetworkConfig, RuntimeConfig,
-                                 ScheduleConfig, build_runtime)
+from repro_torch.runtime import (CompressionConfig, ExecutionConfig,
+                                 MeasureConfig, NetworkConfig, RuntimeConfig,
+                                 ScheduleConfig, TopologyConfig,
+                                 build_runtime)
+
+
+def _compression(args) -> CompressionConfig:
+    scheme = args.compress or "none"
+    return CompressionConfig(
+        scheme=scheme,
+        topk_fraction=args.topk_fraction if scheme == "topk" else None,
+        error_feedback=not args.no_error_feedback)
 
 
 def config_from_flags(args) -> RuntimeConfig:
     """The argparse → RuntimeConfig mapping of the ported runtimes."""
-    network = None
+    network = topology = None
     if args.runtime == "zero":
         network = NetworkConfig(bandwidth_gbps=args.bw_gbps)
+    elif args.runtime == "ps":
+        topology = TopologyConfig(
+            servers=args.ps_servers, down_gbps=args.down_gbps,
+            up_gbps=args.up_gbps, worker_flops=args.worker_flops)
     return RuntimeConfig(
         runtime=args.runtime, arch=args.arch, reduced=args.reduced,
         batch=args.batch, seq=args.seq, optimizer=args.optimizer, lr=args.lr,
-        schedule=ScheduleConfig(strategy=args.strategy, network=network),
+        schedule=ScheduleConfig(strategy=args.strategy, network=network,
+                                topology=topology),
         execution=ExecutionConfig(zero3=args.zero3),
-        measure=MeasureConfig(compute_flops_per_s=args.worker_flops))
+        measure=MeasureConfig(compute_flops_per_s=args.worker_flops),
+        compression=_compression(args))
 
 
 def main(argv=None):
@@ -53,7 +74,8 @@ def main(argv=None):
                     default="granite-3-2b")
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant")
-    ap.add_argument("--runtime", choices=("local", "zero"), default="local")
+    ap.add_argument("--runtime", choices=("local", "zero", "ps"),
+                    default="local")
     ap.add_argument("--strategy", default="dynacomm",
                     choices=("sequential", "lbl", "ibatch", "dynacomm"))
     ap.add_argument("--bw-gbps", type=float, default=10.0,
@@ -61,8 +83,24 @@ def main(argv=None):
     ap.add_argument("--worker-flops", type=float, default=1e10,
                     help="edge-worker compute rate fed to the profiler")
     ap.add_argument("--zero3", action="store_true",
-                    help="zero: re-pull middle-layer weights for the "
+                    help="zero / ps: re-pull middle-layer weights for the "
                          "backward instead of keeping them")
+    ap.add_argument("--ps-servers", type=int, default=2,
+                    help="ps: number of server shards")
+    ap.add_argument("--down-gbps", type=float, default=10.0,
+                    help="ps: server→worker (pull) bandwidth per link")
+    ap.add_argument("--up-gbps", type=float, default=1.0,
+                    help="ps: worker→server (push) bandwidth per link")
+    ap.add_argument("--compress", choices=("none", "int8", "topk"),
+                    default=None,
+                    help="ps: compress gradient pushes (int8 per-tile "
+                         "quantization or top-k sparsification); with "
+                         "--config it replaces the config's compression")
+    ap.add_argument("--topk-fraction", type=float, default=0.01,
+                    help="fraction of entries kept by --compress topk")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="disable error-feedback residual accumulation "
+                         "on compressed pushes")
     ap.add_argument("--steps", type=int, default=100,
                     help="training steps to run (must be >= 1)")
     ap.add_argument("--batch", type=int, default=8)
@@ -76,8 +114,13 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
 
-    config = (RuntimeConfig.load(args.config) if args.config is not None
-              else config_from_flags(args))
+    if args.config is None:
+        config = config_from_flags(args)
+    else:
+        config = RuntimeConfig.load(args.config)
+        if args.compress is not None:
+            config = dataclasses.replace(config,
+                                         compression=_compression(args))
     if args.dump_config:
         print(config.to_json())
         return None
@@ -88,9 +131,9 @@ def main(argv=None):
     print(f"[{config.runtime}] arch {config.arch}"
           + (" (reduced)" if config.reduced else "")
           + f", strategy {config.schedule.strategy}, device {rt.device}")
-    if config.runtime == "zero":
+    if config.runtime in ("zero", "ps"):
         plan = rt.plan
-        print(f"[zero] {rt.trainer.axis_size} ranks; "
+        print(f"[{config.runtime}] {rt.trainer.axis_size} ranks; "
               f"{len(plan.forward)} pull / {len(plan.backward)} push buckets")
 
     t0 = time.perf_counter()
@@ -113,6 +156,11 @@ def main(argv=None):
           f"{led['pull_bytes'] / 1e6:.1f} MB down / "
           f"{led['push_bytes'] / 1e6:.1f} MB up "
           f"({led['num_pulls']} pulls, {led['num_pushes']} pushes)")
+    if config.compression.enabled:
+        print(f"[{config.runtime}] push wire "
+              f"{led['push_wire_bytes'] / 1e6:.1f} MB "
+              f"({config.compression.scheme}, "
+              f"{led['push_compression_ratio']:.2f}x vs fp32)")
     if args.checkpoint:
         rt.save_state(args.checkpoint)
         print(f"saved runtime state to {args.checkpoint}")

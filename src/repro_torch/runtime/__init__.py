@@ -1,4 +1,5 @@
-"""One Trainer API over the ported execution regimes (``local``, ``zero``).
+"""One Trainer API over the ported execution regimes (``local``, ``zero``,
+``ps``).
 
 A frozen, JSON-round-trippable :class:`RuntimeConfig` (the reference's
 schema, so the checked-in smoke configs load unchanged) names a registered

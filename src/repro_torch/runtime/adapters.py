@@ -6,8 +6,10 @@ presents the uniform protocol surface (``fit`` / ``step`` / ``events`` /
 ``timeline`` / ``ledger`` / ``save_state`` / ``restore_state``).  The
 underlying trainer stays reachable as ``.trainer``.
 
-This slice ports ``local`` (whole-model autograd, no collectives) and
-``zero`` (the DynaComm-bucketed ZeRO step).  Checkpoints written by
+The port so far has ``local`` (whole-model autograd, no collectives),
+``zero`` (the DynaComm-bucketed ZeRO step) and ``ps`` (the synchronous
+parameter-server step: the ZeRO step under a topology's consensus plan,
+optionally with compressed pushes).  Checkpoints written by
 ``save_state`` embed the serialized :class:`RuntimeConfig`, so a restore
 from a mismatched runtime fails loudly instead of misreading buffers.
 """
@@ -22,19 +24,31 @@ import torch
 from repro_torch import tree
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.runtime.config import NetworkConfig, RuntimeConfig
+from repro_torch.runtime.config import (NetworkConfig, RuntimeConfig,
+                                        TopologyConfig)
 from repro_torch.runtime.registry import register_runtime
 
 
-def _plan_ledger(specs, plan, workers: int) -> Dict[str, int]:
-    """One synchronous iteration's fleet-wide transfer accounting (fp32
-    both ways: push compression waits for a later slice)."""
+def _plan_ledger(specs, plan, workers: int,
+                 compressor: Optional[Any] = None) -> Dict[str, int]:
+    """One synchronous iteration's fleet-wide transfer accounting.
+
+    ``push_wire_bytes`` is what the uplink actually carries: compressed
+    per-layer payloads plus the per-segment header when a ``compressor``
+    is active, the fp32 payload otherwise (pulls always stay fp32)."""
     from repro_torch.dist.collectives import bucket_bytes
     pull = sum(bucket_bytes(specs, b) for b in plan.forward)
     push = sum(bucket_bytes(specs, b) for b in plan.backward)
+    if compressor is None:
+        push_wire = push
+    else:
+        push_wire = sum(
+            int(round(sum(float(compressor.wire_bytes(specs[l].total * 4))
+                          for l in b) + compressor.segment_overhead_bytes))
+            for b in plan.backward)
     return {"pull_bytes": pull * workers, "push_bytes": push * workers,
             "pull_wire_bytes": pull * workers,
-            "push_wire_bytes": push * workers,
+            "push_wire_bytes": push_wire * workers,
             "num_pulls": len(plan.forward) * workers,
             "num_pushes": len(plan.backward) * workers}
 
@@ -209,9 +223,11 @@ class _CompiledRuntime(RuntimeAdapter):
                      "num_pulls": 0, "num_pushes": 0}
         self._led_by_plan: Dict[Any, Dict[str, int]] = {}
 
-    def _account(self, specs, plan, workers: int) -> None:
+    def _account(self, specs, plan, workers: int,
+                 compressor: Optional[Any] = None) -> None:
         if plan not in self._led_by_plan:
-            self._led_by_plan[plan] = _plan_ledger(specs, plan, workers)
+            self._led_by_plan[plan] = _plan_ledger(specs, plan, workers,
+                                                   compressor)
         for k, v in self._led_by_plan[plan].items():
             self._led[k] += v
 
@@ -277,3 +293,47 @@ class ZeroRuntime(_CompiledRuntime):
     def timeline(self):
         from repro_torch.core import simulate_iteration
         return simulate_iteration(self._costs, *self._decision)
+
+
+class _PSBase(_CompiledRuntime):
+    """Shared topology construction for the synchronous PS regimes."""
+
+    def _build_topology(self):
+        import torch.distributed as dist
+        from repro_torch.dist.zero import default_group
+        topo_cfg = self.config.schedule.topology or TopologyConfig()
+        return topo_cfg.build(default_workers=dist.get_world_size(
+            default_group(self.device)))
+
+
+@register_runtime("ps", description="synchronous parameter-server "
+                                    "execution: consensus plan, one pull + "
+                                    "one push per segment")
+class PSRuntime(_PSBase):
+    """Sync PS: segmented pull/push on the group (== ZeRO bitwise)."""
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.ps import PSTrainer
+        self.trainer = PSTrainer.from_topology(
+            arch, self._build_topology(), config.build_optimizer(),
+            self.shape, device=device, strategy=config.schedule.strategy,
+            compressor=config.compression.build(),
+            zero3=config.execution.zero3, aux_weight=config.aux_weight)
+        self._state = self.trainer.init_state(
+            _generator(device, config.seed))
+
+    @property
+    def plan(self):
+        return self.trainer.plan
+
+    def step(self, batch) -> float:
+        self._state, loss = self.trainer.step(self._state, batch)
+        self._account(self.trainer.specs, self.trainer.plan,
+                      self.trainer.topology.num_workers,
+                      self.trainer.compressor)
+        self._data_idx += 1
+        return float(loss)
+
+    def timeline(self):
+        return self.trainer.timeline(self.shape)

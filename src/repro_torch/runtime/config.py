@@ -51,7 +51,6 @@ _COST_SOURCES = ("analytic", "measured")
 
 # names the reference takes from modules this slice does not port yet
 _PIPELINE_SCHEDULES = ("gpipe", "1f1b")
-_COMPRESSION_SCHEMES = ("none", "int8", "topk")
 _FLEET_EVENT_KINDS = ("join", "leave", "fail", "drift")
 _FAIL_MODES = ("crash", "stall")
 
@@ -134,7 +133,28 @@ class TopologyConfig:
 
     def build(self, default_workers: int):
         """The ``PSTopology`` (or ``TopologySchedule`` when drifting)."""
-        raise _pending("the parameter-server topology")
+        from repro_torch.ps import (PSTopology, asymmetric_link,
+                                    uplink_degradation)
+        W = self.workers
+        if W is None:
+            W = max(len(t) for t in (self.down_gbps, self.up_gbps,
+                                     self.worker_flops)
+                    if isinstance(t, tuple)) \
+                if any(isinstance(t, tuple)
+                       for t in (self.down_gbps, self.up_gbps,
+                                 self.worker_flops)) else default_workers
+        down = self._per_worker(self.down_gbps, W)
+        up = self._per_worker(self.up_gbps, W)
+        flops = self._per_worker(self.worker_flops, W)
+        base = PSTopology(
+            num_servers=self.servers,
+            links=tuple(asymmetric_link(d * 1e9, u * 1e9)
+                        for d, u in zip(down, up)),
+            worker_flops=flops)
+        if self.up_shift_factor is None:
+            return base
+        return uplink_degradation(base, factor=self.up_shift_factor,
+                                  at_epoch=self.shift_epoch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,7 +247,7 @@ class ExecutionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CompressionConfig:
-    """Gradient push compression (a later slice of the port) on the PS regimes.
+    """Gradient push compression (``repro_torch.compress``) on the PS regimes.
 
     ``scheme="int8"`` quantizes each push to int8 with per-tile fp32
     scales; ``"topk"`` keeps the ``topk_fraction`` largest-magnitude
@@ -242,9 +262,10 @@ class CompressionConfig:
     error_feedback: bool = True
 
     def __post_init__(self):
-        if self.scheme not in _COMPRESSION_SCHEMES:
+        from repro_torch.compress import SCHEMES
+        if self.scheme not in SCHEMES:
             raise ValueError(f"unknown compression scheme {self.scheme!r}; "
-                             f"choose from {sorted(_COMPRESSION_SCHEMES)}")
+                             f"choose from {sorted(SCHEMES)}")
         if self.scheme == "topk":
             if self.topk_fraction is None:
                 raise ValueError("scheme='topk' needs topk_fraction")
@@ -260,10 +281,14 @@ class CompressionConfig:
         return self.scheme != "none"
 
     def build(self):
-        """The push compressor (``None`` when off)."""
+        """The :class:`repro_torch.compress.Compressor` (``None`` when
+        off)."""
         if not self.enabled:
             return None
-        raise _pending("push compression")
+        from repro_torch.compress import make_compressor
+        return make_compressor(self.scheme,
+                               topk_fraction=self.topk_fraction,
+                               error_feedback=self.error_feedback)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,8 +3,9 @@
 ``@register_runtime("zero", description=...)`` on an adapter class makes it
 buildable from a :class:`~repro_torch.runtime.config.RuntimeConfig` whose
 ``runtime`` field carries that name; :func:`build_runtime` is the single
-construction path every launcher goes through.  This slice of the port
-registers ``local`` and ``zero``; the other names of the schema raise.
+construction path every launcher goes through.  The port registers
+``local``, ``zero`` and ``ps`` so far; the other names of the schema
+raise.
 """
 
 from __future__ import annotations

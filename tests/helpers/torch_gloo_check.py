@@ -1,6 +1,6 @@
 """Subprocess helper: 2-rank gloo checks of the port's collectives and ZeRO.
 
-Run as ``python torch_gloo_check.py {collectives|zero} OUT.npz`` with
+Run as ``python torch_gloo_check.py {collectives|compressed|zero} OUT.npz`` with
 ``src`` on ``PYTHONPATH``.  Spawns two CPU ranks on a gloo group and
 writes what rank 0 (and, for the collectives, each rank) saw into OUT.npz;
 the parent test compares it with a numpy emulation of the reference's
@@ -10,6 +10,10 @@ the parent test compares it with a numpy emulation of the reference's
   reduce-scatters buckets of random gradient trees (both from numpy seeds
   keyed by rank and layer) over reduced granite-3-2b's sched layers,
   recording the operand handed to each collective.
+* ``compressed``: every rank pushes the same gradient bucket through
+  ``compressed_reduce_scatter_bucket`` with int8 and with top-k (fraction
+  0.05) compressors and zero error-feedback residuals, recording the
+  operand, its pushed shards and the new residuals.
 * ``zero``: ``zero.json`` through ``build_runtime(device="cpu")`` on the
   2-rank group, 3 steps; rank 0 saves the losses, the final whole flat
   parameters and the ledger.
@@ -44,7 +48,6 @@ def specs_and_trees(world: int):
 
 
 def run_collectives(rank: int, out: dict) -> None:
-    from repro_torch import tree
     from repro_torch.dist.collectives import (flatten_tree, gather_bucket,
                                               reduce_scatter_bucket)
     specs, shapes = specs_and_trees(WORLD)
@@ -68,8 +71,17 @@ def run_collectives(rank: int, out: dict) -> None:
             out[f"r{rank}_gather{i}_l{l}"] = flatten_tree(full[l],
                                                           specs[l]).numpy()
         out[f"r{rank}_gather{i}_operand"] = seen[-1].numpy()
-    grads = {}
+    grads = grad_trees(rank, specs, shapes, BUCKETS[2])
+    pushed = reduce_scatter_bucket(grads, specs, BUCKETS[2])
     for l in BUCKETS[2]:
+        out[f"r{rank}_push_l{l}"] = pushed[l].numpy()
+    out[f"r{rank}_push_operand"] = seen[-1].numpy()
+
+
+def grad_trees(rank: int, specs, shapes, bucket) -> dict:
+    from repro_torch import tree
+    grads = {}
+    for l in bucket:
         flat = layer_values("grad", rank, l, specs[l].total)
         leaves, off = [], 0
         for leaf in tree.leaves(shapes[l]):
@@ -78,10 +90,35 @@ def run_collectives(rank: int, out: dict) -> None:
                 leaf.shape))
             off += n
         grads[l] = tree.unflatten(tree.structure(shapes[l]), leaves)
-    pushed = reduce_scatter_bucket(grads, specs, BUCKETS[2])
-    for l in BUCKETS[2]:
-        out[f"r{rank}_push_l{l}"] = pushed[l].numpy()
-    out[f"r{rank}_push_operand"] = seen[-1].numpy()
+    return grads
+
+
+COMPRESSORS = (("int8", None), ("topk", 0.05))
+
+
+def run_compressed(rank: int, out: dict) -> None:
+    from repro_torch.compress import make_compressor
+    from repro_torch.dist.collectives import compressed_reduce_scatter_bucket
+    specs, shapes = specs_and_trees(WORLD)
+    bucket = BUCKETS[2]
+    seen = []
+    real_rs = dist.reduce_scatter_tensor
+
+    def rs(output, operand, **kw):
+        seen.append(operand.clone())
+        return real_rs(output, operand, **kw)
+
+    dist.reduce_scatter_tensor = rs
+    for scheme, frac in COMPRESSORS:
+        residuals = {l: torch.zeros(specs[l].padded) for l in bucket}
+        pushed, res = compressed_reduce_scatter_bucket(
+            grad_trees(rank, specs, shapes, bucket), specs, bucket, None,
+            make_compressor(scheme, topk_fraction=frac), residuals)
+        assert res is residuals
+        for l in bucket:
+            out[f"r{rank}_{scheme}_push_l{l}"] = pushed[l].numpy()
+            out[f"r{rank}_{scheme}_res_l{l}"] = res[l].numpy()
+        out[f"r{rank}_{scheme}_operand"] = seen[-1].numpy()
 
 
 def run_zero(rank: int, out: dict) -> None:
@@ -105,7 +142,8 @@ def worker(rank: int, mode: str, port: int, path: str) -> None:
                             rank=rank, world_size=WORLD)
     out: dict = {}
     try:
-        {"collectives": run_collectives, "zero": run_zero}[mode](rank, out)
+        {"collectives": run_collectives, "compressed": run_compressed,
+         "zero": run_zero}[mode](rank, out)
         gathered = [None] * WORLD
         dist.all_gather_object(gathered, out)
         if rank == 0:

@@ -167,6 +167,50 @@ def test_two_rank_gloo_layout_equals_reference_emulation(tmp_path):
             off += w
 
 
+def test_two_rank_gloo_compressed_push_equals_reference_emulation(tmp_path):
+    """Each rank round-trips its own full flat gradient (the reference's
+    ``compressor.feedback_roundtrip`` under jit, zero residuals), the rows
+    are laid out as in ``reduce_scatter_bucket`` and summed; the port's
+    operand, pushed shards and new residuals equal that bit for bit."""
+    from repro.compress import make_compressor as jax_make_compressor
+    sys.path.insert(0, os.path.dirname(HELPER))
+    try:
+        import torch_gloo_check as helper
+    finally:
+        sys.path.pop(0)
+    got = _run_helper("compressed", tmp_path)
+    world, bucket = helper.WORLD, helper.BUCKETS[2]
+    specs, _ = helper.specs_and_trees(world)
+    for scheme, frac in helper.COMPRESSORS:
+        comp = jax_make_compressor(scheme, topk_fraction=frac,
+                                   use_kernel=False)
+        roundtrip = jax.jit(comp.feedback_roundtrip)
+        operands = []
+        for r in range(world):
+            rows = []
+            for l in bucket:
+                flat = np.zeros(specs[l].padded, np.float32)
+                flat[:specs[l].total] = helper.layer_values(
+                    "grad", r, l, specs[l].total)
+                c, res = roundtrip(flat, np.zeros_like(flat))
+                np.testing.assert_array_equal(
+                    got[f"r{r}_{scheme}_res_l{l}"].view(np.int32),
+                    np.asarray(res).view(np.int32))
+                rows.append(np.asarray(c).reshape(world, -1))
+            operands.append(np.concatenate(rows, axis=1))
+            np.testing.assert_array_equal(
+                got[f"r{r}_{scheme}_operand"].view(np.int32),
+                operands[r].reshape(-1).view(np.int32))
+        summed = operands[0] + operands[1]
+        for r in range(world):
+            off = 0
+            for l in bucket:
+                w = specs[l].shard_size
+                np.testing.assert_array_equal(
+                    got[f"r{r}_{scheme}_push_l{l}"], summed[r, off:off + w])
+                off += w
+
+
 def test_two_rank_gloo_zero_equals_one_rank(tmp_path):
     """zero.json on 2 gloo ranks = the same run on one rank, to fp32
     roundoff (each rank's loss and gradient cover half the batch)."""

@@ -169,7 +169,7 @@ def test_launcher_runs_on_cpu_and_dumps_config(capsys):
 
 
 def test_unported_runtimes_raise():
-    for name in ("ps", "dynamic", "pipeline"):
+    for name in ("ps_async", "dynamic", "pipeline"):
         cfg = RuntimeConfig.load(os.path.join(
             CONFIGS, f"{name}.json"))
         with pytest.raises(ValueError, match="not ported"):
