@@ -5,10 +5,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 
 1. ``device``: the card, torch, ``nvidia-smi``'s name and power limit, and
    the build of the CUDA kernels from ``src/repro_torch/csrc``;
-2. ``kernels``: every kernel of the two paths below against its plain
-   PyTorch version on the card, at the reference's sweep shapes and at the
-   paths' shapes, with the kernel's, the plain version's and one library
-   call's times beside the least time the card could take;
+2. ``kernels``: every kernel of the paths below against its plain PyTorch
+   version on the card, at the reference's sweep shapes and at the paths'
+   shapes, with the kernel's, the plain version's and one library call's
+   times beside the least time the card could take;
 3. ``main``: 3 ZeRO steps of full-width granite-3-2b under the DynaComm
    plan, with the kernels' launches in those steps asserted against the
    plan;
@@ -18,12 +18,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    against the plan and the push compression ratio against its formula;
    each path again from the same seed with the round trip composed from
    the plain versions, whose losses must equal the kernel path's bitwise;
-5. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
+5. ``hybrid``: 3 ZeRO steps of full-width recurrentgemma-2b (18 RG-LRU
+   blocks through the ``rglru_scan`` kernel, 8 local-attention blocks
+   through flash attention at head dim 256), launches asserted against the
+   plan and the layer kinds; then the same steps with the scan replaced by
+   its plain loop (autograd through it), whose losses must equal bitwise;
+6. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
    smoke configs through the launcher (``ps.json`` plain, int8 and top-k);
    zero against local to fp32 tolerance, zero bitwise across the four
    scheduling strategies, and plain ps bitwise equal to zero; then
-   ``ps.json`` plain, int8 and top-k on the card against the port on the
-   CPU from one initial state, to a stated tolerance.
+   ``ps.json`` plain, int8 and top-k, and a reduced recurrentgemma-2b
+   ``zero`` run, on the card against the port on the CPU from one initial
+   state, to a stated tolerance.
 
 The last lines are ``nvidia-smi``'s line, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
@@ -61,6 +67,9 @@ STEPS = 3
 MAIN = dict(runtime="zero", arch="granite-3-2b", reduced=False, batch=2,
             seq=1024, optimizer="adamw")
 PS = dict(MAIN, runtime="ps")              # + ps.json's topology (default)
+HYBRID = dict(MAIN, arch="recurrentgemma-2b")
+HYBRID_SMOKE_SEQ = 80           # past the reduced window of 64
+HYBRID_CARD_CPU_RTOL = 2e-6    # ps.json's bound; 7.8e-8 measured on an H100
 TOPK_FRACTION = 0.01
 PS_SCHEMES = (("int8", ("compress_quantize", "compress_dequantize")),
               ("topk", ("compress_sparsify", "compress_densify")))
@@ -75,7 +84,13 @@ FLASH_SWEEP = ((2, 4, 2, 256, 64, True, 0, 0.0),
                (1, 2, 2, 512, 64, True, 100, 30.0),
                (2, 4, 4, 16, 64, True, 0, 0.0),          # smoke configs' T
                (1, 4, 2, 200, 64, True, 64, 0.0),
-               (1, 2, 1, 77, 80, False, 0, 0.0))
+               (1, 2, 1, 77, 80, False, 0, 0.0),
+               # head dim 256 (recurrentgemma-2b): GQA 10/1, the window bites
+               (1, 10, 1, 4096, 256, True, 2048, 0.0),
+               (2, 4, 1, 256, 256, True, 0, 0.0),
+               (1, 2, 2, 200, 256, True, 64, 30.0))
+# (b, t, w): ragged widths and lengths, then the hybrid path's shape
+RGLRU_SWEEP = ((1, 200, 100), (3, 17, 33), (1, 1, 5), (2, 1024, 2560))
 REPLACES = {
     "bucket_pack": "src/repro/kernels/bucket_pack/bucket_pack.py:76",
     "bucket_unpack": "src/repro/kernels/bucket_pack/bucket_pack.py:124",
@@ -85,6 +100,7 @@ REPLACES = {
     "compress_dequantize": "src/repro/kernels/compress/compress.py:137",
     "compress_sparsify": "src/repro/kernels/compress/compress.py:178",
     "compress_densify": "src/repro/kernels/compress/compress.py:210",
+    "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
 }
 SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
@@ -92,7 +108,8 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "compress_quantize": "src/repro_torch/csrc/compress.cu",
            "compress_dequantize": "src/repro_torch/csrc/compress.cu",
            "compress_sparsify": "src/repro_torch/csrc/compress.cu",
-           "compress_densify": "src/repro_torch/csrc/compress.cu"}
+           "compress_densify": "src/repro_torch/csrc/compress.cu",
+           "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu"}
 
 
 def say(phase: str, msg: str) -> None:
@@ -290,9 +307,9 @@ def live_pairs(t: int, causal: bool, window: int) -> int:
 
 
 def check_flash(gen, dev, arch) -> dict:
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
                                                          flash_attention)
-    import torch.nn.functional as F
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     with torch.no_grad():
         for case in FLASH_SWEEP:
@@ -314,32 +331,49 @@ def check_flash(gen, dev, arch) -> dict:
                        f"{worst[torch.bfloat16]:.3g} (atol {BF16_ATOL})")
 
         # the main path's call: (B, T, H, hd) views, GQA 32/8, T = 1024
-        b, t, h, hkv, hd = (MAIN["batch"], MAIN["seq"], arch.num_heads,
-                            arch.num_kv_heads, arch.head_dim)
-        q, k, v = _qkv(gen, dev, b, h, hkv, t, hd, torch.float32, True)
-        err = (flash_attention(q, k, v, True, 0, 0.0)
-               - _ref_fwd(q, k, v, True, 0, 0.0)).abs().max().item()
-        if not err <= F32_ATOL:
-            raise AssertionError(f"flash at the main path's shape: max abs "
-                                 f"err {err:.3g} > {F32_ATOL}")
-        flops = 4 * b * h * hd * live_pairs(t, True, 0)
-        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-        t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        iters = 20
-        rec = dict(
-            max_abs_err=err,
-            ms=cuda_ms(lambda: flash_attention(q, k, v, True, 0, 0.0),
-                       iters),
-            plain_ms=cuda_ms(lambda: _ref_fwd(q, k, v, True, 0, 0.0), iters),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), iters),
-            bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes")
-        say("kernels", f"flash_attention_fwd at (B={b}, H={h}/{hkv}, T={t}, "
-                       f"hd={hd}) f32: max abs err {err:.3g}; "
-                       f"{flops / rec['ms'] / 1e9:.2f} TFLOP/s")
+        rec = time_flash(gen, dev, arch, 0, "main")
+        # the hybrid path's: GQA 10/1, hd 256, window 2048 (T = 1024 < it)
+        hybrid = get_config(HYBRID["arch"])
+        time_flash(gen, dev, hybrid, hybrid.sliding_window, "hybrid")
     return {"flash_attention_fwd": rec}
+
+
+def time_flash(gen, dev, arch, window: int, path: str) -> dict:
+    """Flash forward at a path's shape, f32: checked, then timed beside
+    its plain version, SDPA and its bound."""
+    from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
+                                                         flash_attention)
+    import torch.nn.functional as F
+    b, t, h, hkv, hd = (MAIN["batch"], MAIN["seq"], arch.num_heads,
+                        arch.num_kv_heads, arch.head_dim)
+    q, k, v = _qkv(gen, dev, b, h, hkv, t, hd, torch.float32, True)
+    err = (flash_attention(q, k, v, True, window, 0.0)
+           - _ref_fwd(q, k, v, True, window, 0.0)).abs().max().item()
+    if not err <= F32_ATOL:
+        raise AssertionError(f"flash at the {path} path's shape: max abs "
+                             f"err {err:.3g} > {F32_ATOL}")
+    flops = 4 * b * h * hd * live_pairs(t, True, window)
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    iters = 20
+    rec = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: flash_attention(q, k, v, True, window, 0.0),
+                   iters),
+        plain_ms=cuda_ms(lambda: _ref_fwd(q, k, v, True, window, 0.0),
+                         iters),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes")
+    say("kernels", f"flash_attention_fwd at the {path} path's (B={b}, "
+                   f"H={h}/{hkv}, T={t}, hd={hd}, window {window}) f32: max "
+                   f"abs err {err:.3g}; {flops / rec['ms'] / 1e9:.2f} "
+                   f"TFLOP/s; {rec['ms']:.4f} ms (plain "
+                   f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, "
+                   f"bound {rec['bound_ms']:.4f} by {rec['bound_by']})")
+    return rec
 
 
 COMPRESS_SWEEP = ((512,), (512, 1024), (2048, 512, 512, 1024), (512,) * 7,
@@ -489,6 +523,56 @@ def time_compress_kernels(gen, dev, specs) -> dict:
     return out
 
 
+def _scan_inputs(gen, dev, b, t, w, dtype):
+    """a in (0.05, 1) as the path's gates give it, x ~ N(0, 1)."""
+    a = torch.rand(b, t, w, generator=gen, device=dev) * 0.95 + 0.05
+    x = torch.randn(b, t, w, generator=gen, device=dev)
+    return a.to(dtype), x.to(dtype)
+
+
+def check_rglru(gen, dev) -> dict:
+    """``rglru_scan`` bitwise against its plain loop, forward and reverse,
+    f32 and bf16, on ragged shapes and the hybrid path's; its autograd
+    gradient bitwise against the plain backward; then timed forward at the
+    path's shape, (B, T, W) = (2, 1024, 2560) f32."""
+    from repro_torch.kernels.rglru_scan import ops, ref
+    for b, t, w in RGLRU_SWEEP:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, x = _scan_inputs(gen, dev, b, t, w, dtype)
+            for reverse in (False, True):
+                assert_bitwise(ops.scan(a, x, reverse),
+                               ref.rglru_scan_ref(a, x, reverse),
+                               f"rglru_scan {(b, t, w)} {dtype} reverse="
+                               f"{reverse}")
+    a, x = _scan_inputs(gen, dev, 2, 200, 100, torch.float32)
+    g = torch.randn(a.shape, generator=gen, device=dev)
+    ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
+    h = ops.rglru_scan(ta, tx)
+    h.backward(g)
+    dh = ref.rglru_scan_ref(torch.nn.functional.pad(a[:, 1:], (0, 0, 0, 1)),
+                            g, reverse=True)
+    h_prev = torch.nn.functional.pad(h.detach()[:, :-1], (0, 0, 1, 0))
+    assert_bitwise(tx.grad, dh, "rglru_scan gradient of x")
+    assert_bitwise(ta.grad, dh * h_prev, "rglru_scan gradient of a")
+    say("kernels", f"rglru_scan bitwise on {len(RGLRU_SWEEP)} shapes x f32 / "
+                   f"bf16 x forward / reverse; its gradient bitwise against "
+                   f"the plain reverse scan")
+
+    b, t, w = RGLRU_SWEEP[-1]
+    a, x = _scan_inputs(gen, dev, b, t, w, torch.float32)
+    assert_bitwise(ops.scan(a, x), ref.rglru_scan_ref(a, x),
+                   "rglru_scan at the hybrid path's shape")
+    rec = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ops.scan(a, x), 20),
+               plain_ms=cuda_ms(lambda: ref.rglru_scan_ref(a, x), 3),
+               library_ms=None,
+               bound_ms=3 * 4 * a.numel() / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    say("kernels", f"rglru_scan at the hybrid path's (B={b}, T={t}, W={w}) "
+                   f"f32: {rec['ms']:.4f} ms = "
+                   f"{rec['ms'] / rec['bound_ms']:.1f}x its byte bound")
+    return {"rglru_scan": rec}
+
+
 def phase_kernels(arch, plan, specs) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -499,6 +583,8 @@ def phase_kernels(arch, plan, specs) -> dict:
     free_cuda()
     check_compress_kernels(gen, dev)
     records.update(time_compress_kernels(gen, dev, specs))
+    free_cuda()
+    records.update(check_rglru(gen, dev))
     free_cuda()
     for name, r in records.items():
         lib = r["library_ms"]
@@ -564,12 +650,16 @@ def phase_main(profile: bool) -> dict:
 
 def expected_launches(plan, arch, compress) -> dict:
     """Kernel launches over STEPS steps of a plan: one pack per bucket,
-    one unpack per pull bucket, the flash forward twice per block (forward
-    and recompute), and one launch of each ``compress`` kernel per sched
-    layer."""
+    one unpack per pull bucket, the flash forward twice per attention
+    block (forward and recompute), the RG-LRU scan three times per RG-LRU
+    block (forward, recompute and the reverse scan of the backward), and
+    one launch of each ``compress`` kernel per sched layer."""
+    kinds = arch.layer_kinds()
     per_step = {"bucket_pack": len(plan.forward) + len(plan.backward),
                 "bucket_unpack": len(plan.forward),
-                "flash_attention_fwd": 2 * arch.num_layers}
+                "flash_attention_fwd": 2 * sum(
+                    k in ("global_attn", "local_attn") for k in kinds),
+                "rglru_scan": 3 * kinds.count("rglru")}
     layers = sum(len(b) for b in plan.backward)
     for name in PS_SCHEMES[0][1] + PS_SCHEMES[1][1]:
         per_step[name] = layers if name in compress else 0
@@ -708,6 +798,90 @@ def phase_ps(profile: bool) -> dict:
     return counts_by_scheme
 
 
+def phase_hybrid(profile: bool) -> dict:
+    """3 ZeRO steps of full-width recurrentgemma-2b, then the same steps
+    with the scan replaced by its plain loop."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.models import ssm
+    from repro_torch.runtime import (RuntimeConfig, ScheduleConfig,
+                                     build_runtime)
+    config = RuntimeConfig(**HYBRID, schedule=ScheduleConfig(
+        strategy="dynacomm"))
+    card = torch.cuda.get_device_properties(0).total_memory
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = build_runtime(config)
+    torch.cuda.synchronize()
+    plan, arch = rt.plan, rt.arch
+    kinds = arch.layer_kinds()
+    say("hybrid", f"{arch.name}: {arch.num_layers} layers "
+                  f"({kinds.count('rglru')} rglru, "
+                  f"{kinds.count('local_attn')} local_attn), d_model "
+                  f"{arch.d_model}, heads {arch.num_heads}/"
+                  f"{arch.num_kv_heads} x {arch.head_dim}, lru width "
+                  f"{arch.rglru_lru_width}, d_ff {arch.d_ff}, vocab "
+                  f"{arch.vocab_size}, window {arch.sliding_window}; batch "
+                  f"{config.batch} x seq {config.seq}; built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    say("hybrid", f"plan (dynacomm): {len(plan.forward)} pull buckets "
+                  f"{[len(b) for b in plan.forward]}, {len(plan.backward)} "
+                  f"push buckets {[len(b) for b in plan.backward]}")
+    reset_launch_counts()
+    losses, secs = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        losses.extend(rt.fit(1))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    expect = expected_launches(plan, arch, ())
+    if counts != expect:
+        raise AssertionError(f"hybrid launches {counts} != expected {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"hybrid: non-finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    if not peak < card:
+        raise AssertionError(f"hybrid: peak {peak} >= card {card}")
+    steady = sum(secs[1:]) / len(secs[1:])
+    tokens = config.batch * config.seq
+    say("hybrid", f"losses {losses}")
+    say("hybrid", f"step seconds {[round(x, 4) for x in secs]}; steady "
+                  f"{steady * 1e3:.1f} ms/step (steps 2-{STEPS}), "
+                  f"{tokens / steady:.1f} tokens/s; peak memory "
+                  f"{peak / 2**30:.2f} GiB of {card / 2**30:.2f}")
+    say("hybrid", f"launches over {STEPS} steps {counts} == plan and kinds")
+    if profile:
+        profile_step(rt, steady, "profile hybrid")
+    del rt
+    free_cuda()
+
+    # the same steps from the same seed with the scan replaced by its plain
+    # loop, differentiated by autograd: the losses must not change a bit
+    kernel_scan = ssm.rglru_scan
+    ssm.rglru_scan = rglru_scan_ref
+    try:
+        rt = build_runtime(config)
+        reset_launch_counts()
+        plain = rt.fit(STEPS)
+        ran = launch_counts()["rglru_scan"]
+    finally:
+        ssm.rglru_scan = kernel_scan
+    del rt
+    free_cuda()
+    if ran:
+        raise AssertionError(f"the plain run launched rglru_scan {ran} times")
+    if plain != losses:
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+        raise AssertionError(f"hybrid: kernel path losses {losses} != plain "
+                             f"scan {plain} (largest relative gap "
+                             f"{gap:.3g})")
+    say("hybrid", f"the plain scan (ref.py, autograd through the loop) gives "
+                  f"the same {STEPS} losses bitwise")
+    return counts
+
+
 def profile_step(rt, steady: float, phase: str = "profile") -> None:
     """One more step under ``torch.profiler``: device time by kernel, and
     the device's idle share of an untraced steady step."""
@@ -736,11 +910,12 @@ def profile_step(rt, steady: float, phase: str = "profile") -> None:
 # ---------------------------------------------------------------------------
 
 
-def card_against_cpu(config) -> tuple:
-    """``STEPS`` losses of ``config`` on the card and on the CPU (plain
-    versions, held bitwise to the reference there) from one initial
-    state, drawn on the CPU and restored on the card; the batches are
-    numpy's on both.  Returns (largest relative gap, card, CPU)."""
+def card_against_cpu(config, model=None) -> tuple:
+    """``STEPS`` losses of ``config`` (``model`` overriding its arch) on the
+    card and on the CPU (plain versions, held to the reference there) from
+    one initial state, drawn on the CPU and restored on the card; the
+    batches are numpy's on both.  Returns (largest relative gap, card,
+    CPU)."""
     import tempfile
     from repro_torch.runtime import build_runtime
     dist = torch.distributed
@@ -749,11 +924,11 @@ def card_against_cpu(config) -> tuple:
         path = str(Path(tmp) / "init.npz")
         if dist.is_initialized():
             dist.destroy_process_group()
-        cpu_rt = build_runtime(config, device="cpu")      # a gloo group
+        cpu_rt = build_runtime(config, model, device="cpu")  # a gloo group
         cpu_rt.save_state(path)
         cpu = cpu_rt.fit(STEPS)
         dist.destroy_process_group()
-        card_rt = build_runtime(config)                   # an NCCL group
+        card_rt = build_runtime(config, model)            # an NCCL group
         card_rt.restore_state(path)
         card = card_rt.fit(STEPS)
         dist.destroy_process_group()
@@ -776,6 +951,9 @@ def phase_configs() -> None:
                               str(STEPS), "--log-every", "0", "--compress",
                               scheme])
           for scheme in ("none", "int8", "topk")}
+    hybrid = train_main(["--arch", HYBRID["arch"], "--reduced", "--runtime",
+                         "zero", "--steps", str(STEPS), "--seq",
+                         str(HYBRID_SMOKE_SEQ), "--log-every", "0"])
     counts = launch_counts()
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel never ran in the configs: {counts}")
@@ -799,6 +977,25 @@ def phase_configs() -> None:
         say("configs", f"ps.json/{scheme} from one initial state: card "
                        f"{card}, CPU {cpu}; rel gap {gap:.3g} (rtol "
                        f"{CARD_CPU_RTOL})")
+    if not all(math.isfinite(x) for x in hybrid):
+        raise AssertionError(f"non-finite reduced {HYBRID['arch']} losses "
+                             f"{hybrid}")
+    # reduced recurrentgemma-2b with 3 layers: (rglru, rglru, local_attn)
+    from repro_torch.configs import get_config
+    arch = dataclasses.replace(get_config(HYBRID["arch"]).reduced(),
+                               num_layers=3)
+    gap, card, cpu = card_against_cpu(RuntimeConfig(
+        runtime="zero", arch=HYBRID["arch"], reduced=True, batch=2,
+        seq=HYBRID_SMOKE_SEQ), arch)
+    if not gap <= HYBRID_CARD_CPU_RTOL:
+        raise AssertionError(f"reduced {HYBRID['arch']}: card {card} vs CPU "
+                             f"{cpu}: rel gap {gap:.3g} > "
+                             f"{HYBRID_CARD_CPU_RTOL}")
+    say("configs", f"reduced {HYBRID['arch']} {arch.layer_kinds()} at seq "
+                   f"{HYBRID_SMOKE_SEQ} from one initial state: card {card}, "
+                   f"CPU {cpu}; rel gap {gap:.3g} (rtol "
+                   f"{HYBRID_CARD_CPU_RTOL}); the launcher's 2-layer run "
+                   f"{hybrid}")
     gap = max(abs(a - b) / abs(b) for a, b in zip(zero, local))
     if not gap <= LOSS_RTOL:
         raise AssertionError(f"zero {zero} vs local {local}: rel gap "
@@ -822,8 +1019,8 @@ def phase_configs() -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="trace one extra step of the main path and of each "
-                         "ps path with torch.profiler")
+                    help="trace one extra step of the main path, of each "
+                         "ps path and of the hybrid path with torch.profiler")
     args = ap.parse_args(argv)
 
     smi = phase_device()
@@ -833,15 +1030,18 @@ def main(argv=None) -> None:
     records = phase_kernels(arch, plan, specs)
     counts = phase_main(args.profile)
     ps_counts = phase_ps(args.profile)
+    hybrid_counts = phase_hybrid(args.profile)
     phase_configs()
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
     # launches: each kernel's count on the path that runs it (the ZeRO
-    # step, the int8 push, the top-k push), read right after that path
+    # step, the int8 push, the top-k push, the hybrid step), read right
+    # after that path
     for scheme, names in PS_SCHEMES:
         for name in names:
             counts[name] = ps_counts[scheme][name]
+    counts["rglru_scan"] = hybrid_counts["rglru_scan"]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

@@ -10,6 +10,8 @@ are built at first use by :mod:`repro_torch.kernels._build`.
 * ``flash_attention`` — causal / windowed / softcapped attention forward.
 * ``compress`` — int8 quantize / dequantize and top-k sparsify / densify:
   the compressed gradient push of the ``ps`` runtime.
+* ``rglru_scan`` — the RG-LRU linear recurrence of recurrentgemma's
+  recurrent blocks, forward and (in reverse) backward.
 """
 
 from typing import Dict
@@ -17,9 +19,10 @@ from typing import Dict
 from repro_torch.kernels.bucket_pack import ops as _bucket_ops
 from repro_torch.kernels.compress import ops as _compress_ops
 from repro_torch.kernels.flash_attention import ops as _flash_ops
+from repro_torch.kernels.rglru_scan import ops as _rglru_ops
 
 _COUNTERS = (_bucket_ops.LAUNCHES, _flash_ops.LAUNCHES,
-             _compress_ops.LAUNCHES)
+             _compress_ops.LAUNCHES, _rglru_ops.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

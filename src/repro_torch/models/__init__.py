@@ -1,4 +1,5 @@
-"""Model zoo (text models with attention blocks; other families later)."""
+"""Model zoo (text models with attention and RG-LRU blocks; other families
+later)."""
 
 from repro_torch.models.model import (cross_entropy, forward, init_params,
                                       num_sched_layers, param_count,

@@ -1,8 +1,9 @@
-"""Per-layer block: init / apply for the attention kinds with a dense MLP.
+"""Per-layer block: init / apply for the attention kinds and the RG-LRU,
+with a dense MLP.
 
 Every block is addressable individually — DynaComm schedules transmissions
-layer by layer.  The recurrent kinds (mLSTM, sLSTM, RG-LRU) and the MoE MLP
-wait for a later slice and raise ``NotImplementedError``.
+layer by layer.  The xLSTM kinds (mLSTM, sLSTM) and the MoE MLP wait for a
+later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -12,15 +13,15 @@ from typing import Any, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, LayerKind
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
 
 ATTN_KINDS = ("global_attn", "local_attn")
 
 
 def _check(cfg: ArchConfig, kind: LayerKind) -> None:
-    if kind not in ATTN_KINDS:
-        if kind in ("mlstm", "slstm", "rglru"):
+    if kind not in ATTN_KINDS + ("rglru",):
+        if kind in ("mlstm", "slstm"):
             raise NotImplementedError(
                 f"layer kind {kind!r} is not ported yet (ROADMAP queue 1: "
                 f"remaining families)")
@@ -35,7 +36,10 @@ def init_block(gen, cfg: ArchConfig, kind: LayerKind, dtype=torch.float32,
     _check(cfg, kind)
     p: dict = {"norm1": torch.zeros((cfg.d_model,), dtype=dtype,
                                     device=device)}
-    p["attn"] = attention.init_attn_params(gen, cfg, dtype, device)
+    if kind in ATTN_KINDS:
+        p["attn"] = attention.init_attn_params(gen, cfg, dtype, device)
+    else:
+        p["rglru"] = ssm.init_rglru_params(gen, cfg, dtype, device)
     if cfg.d_ff > 0:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
@@ -50,9 +54,13 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: LayerKind,
     _check(cfg, kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params["norm1"], cfg.norm_eps)
-    out, new_cache = attention.attention(
-        params["attn"], h, cfg, local=(kind == "local_attn"), mode=mode,
-        cache=cache)
+    if kind in ATTN_KINDS:
+        out, new_cache = attention.attention(
+            params["attn"], h, cfg, local=(kind == "local_attn"), mode=mode,
+            cache=cache)
+    else:
+        out, new_cache = ssm.apply_rglru(params["rglru"], h, cfg, mode=mode,
+                                         state=cache)
     x = x + out
     if cfg.d_ff > 0:
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)

@@ -34,7 +34,8 @@ def _numpy_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "gemma2-2b",
+                                  "recurrentgemma-2b"])
 @pytest.mark.parametrize("axis", [1, 2, 3])
 def test_flatten_tree_bitwise_vs_reference(arch, axis):
     params = _numpy_tree(jax_init_params(jax_get_config(arch).reduced(),

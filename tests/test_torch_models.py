@@ -49,6 +49,8 @@ MODEL_CASES = {
     "granite": ("granite-3-2b", {}, 16),
     "gemma2-window-softcap-geglu": ("gemma2-2b", {}, 80),
     "gqa-nrep2": ("granite-3-2b", {"num_kv_heads": 2}, 24),
+    # (rglru, rglru, local_attn): the reduced window of 64 bites at seq 80
+    "recurrentgemma-window": ("recurrentgemma-2b", {"num_layers": 3}, 80),
 }
 
 
@@ -132,8 +134,7 @@ class TestLayers:
                                 local=False, mode="decode")
 
     def test_unported_families_raise(self):
-        for name in ("granite-moe-1b-a400m", "xlstm-350m",
-                     "recurrentgemma-2b", "hubert-xlarge"):
+        for name in ("granite-moe-1b-a400m", "xlstm-350m", "hubert-xlarge"):
             with pytest.raises(NotImplementedError):
                 model.param_shapes(get_config(name).reduced())
 
@@ -175,7 +176,7 @@ class TestModel:
         assert all(torch.equal(x, y) for x, y in zip(ga, gb))
 
     @pytest.mark.parametrize("name", ["granite-3-2b", "gemma2-2b",
-                                      "gemma-7b"])
+                                      "gemma-7b", "recurrentgemma-2b"])
     @pytest.mark.parametrize("reduced", [True, False])
     def test_param_layout_bytes_and_profiles_exact(self, name, reduced):
         cfg, jcfg = get_config(name), jax_get_config(name)
@@ -255,7 +256,8 @@ class TestPlanning:
                                           "dynacomm"])
     @pytest.mark.parametrize("name,reduced,seq", [
         ("granite-3-2b", True, 16), ("granite-3-2b", False, 1024),
-        ("gemma2-2b", True, 80)])
+        ("gemma2-2b", True, 80), ("recurrentgemma-2b", True, 80),
+        ("recurrentgemma-2b", False, 1024)])
     def test_plans_equal_reference(self, strategy, name, reduced, seq):
         cfg, jcfg = get_config(name), jax_get_config(name)
         if reduced:
