@@ -8,7 +8,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
 2. ``kernels``: every kernel of the paths below against its plain PyTorch
    version on the card, at the reference's sweep shapes and at the paths'
    shapes, with the kernel's, the plain version's and one library call's
-   times beside the least time the card could take;
+   times beside the least time the card could take (flash at both paths'
+   head dims, 64 and 256, as two records; pack and unpack in turns with
+   ``torch.cat`` / ``split_with_sizes_copy``), and pack / unpack on 1,200
+   pieces under ``torch.cuda.set_sync_debug_mode("error")``;
 3. ``main``: 3 ZeRO steps of full-width granite-3-2b under the DynaComm
    plan, with the kernels' launches in those steps asserted against the
    plan;
@@ -46,6 +49,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -88,13 +92,22 @@ FLASH_SWEEP = ((2, 4, 2, 256, 64, True, 0, 0.0),
                # head dim 256 (recurrentgemma-2b): GQA 10/1, the window bites
                (1, 10, 1, 4096, 256, True, 2048, 0.0),
                (2, 4, 1, 256, 256, True, 0, 0.0),
-               (1, 2, 2, 200, 256, True, 64, 30.0))
+               (1, 2, 2, 200, 256, True, 64, 30.0),
+               # the tiles' edges: T past a 128- / 64-row tile, hd 96 and
+               # 112 inside their 128 template, a window edge inside a tile
+               (1, 2, 1, 130, 64, True, 0, 0.0),
+               (1, 2, 2, 70, 96, True, 0, 0.0),
+               (1, 2, 1, 200, 112, True, 0, 20.0),
+               (1, 2, 2, 300, 80, True, 37, 0.0),
+               (1, 4, 2, 129, 256, True, 40, 0.0))
 # (b, t, w): ragged widths and lengths, then the hybrid path's shape
 RGLRU_SWEEP = ((1, 200, 100), (3, 17, 33), (1, 1, 5), (2, 1024, 2560))
 REPLACES = {
     "bucket_pack": "src/repro/kernels/bucket_pack/bucket_pack.py:76",
     "bucket_unpack": "src/repro/kernels/bucket_pack/bucket_pack.py:124",
     "flash_attention_fwd":
+        "src/repro/kernels/flash_attention/flash_attention.py:111",
+    "flash_attention_fwd@hd256":
         "src/repro/kernels/flash_attention/flash_attention.py:111",
     "compress_quantize": "src/repro/kernels/compress/compress.py:81",
     "compress_dequantize": "src/repro/kernels/compress/compress.py:137",
@@ -105,6 +118,8 @@ REPLACES = {
 SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_fwd@hd256":
+               "src/repro_torch/csrc/flash_attention.cu",
            "compress_quantize": "src/repro_torch/csrc/compress.cu",
            "compress_dequantize": "src/repro_torch/csrc/compress.cu",
            "compress_sparsify": "src/repro_torch/csrc/compress.cu",
@@ -173,10 +188,31 @@ def phase_device() -> str:
                   f"in {time.perf_counter() - t0:.1f} s into "
                   f"{info['directory']}")
     for name, log in info["logs"].items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say("device", f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        for kernel, regs, spills in ptxas_usage(log):
+            say("device", f"ptxas {name}: {kernel}: {regs} registers, "
+                          f"{spills}")
     return smi
+
+
+def ptxas_usage(log: str) -> list:
+    """(kernel, registers, spill stores and loads) for each entry function
+    in ``nvcc -Xptxas=-v`` output."""
+    out, kernel, spills = [], "?", "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            base = re.search(r"\d([a-z_]+_kernel)", mangled)
+            args = (["bf16"] if "bfloat16" in mangled else
+                    ["f32"] if re.search(r"_kernelIf", mangled) else [])
+            args += re.findall(r"Li(\d+)E", mangled)
+            kernel = (base.group(1) if base else mangled) + (
+                f"<{', '.join(args)}>" if args else "")
+        elif "spill stores" in line:
+            spills = line.split(",", 1)[1].strip()
+        elif "Used" in line and "registers" in line:
+            out.append((kernel, int(re.search(r"Used (\d+) registers",
+                                              line).group(1)), spills))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +275,50 @@ def check_bucket_kernels(gen, dev) -> None:
     say("kernels", f"bucket_pack / bucket_unpack bitwise on "
                    f"{len(PACK_SWEEP)} aligned sweeps and the ragged "
                    f"collective form (rows 1-3), f32 and bf16")
+    check_no_stream_sync(gen, dev)
+
+
+def check_no_stream_sync(gen, dev) -> None:
+    """pack_ragged / unpack_columns on 1,200 pieces and 1,100 columns of
+    all three alignment classes (16-byte, 4-byte, 2-byte offsets; zero
+    runs), with the sync debug mode raising on any synchronisation, then
+    bitwise against their plain versions."""
+    from repro_torch.kernels.bucket_pack import ops, ref
+    lo = torch.randint(0, 40000, (1200,), generator=gen, device=dev).tolist()
+    n = torch.randint(1, 300, (1200,), generator=gen, device=dev).tolist()
+    widths = torch.randint(1, 90, (1100,), generator=gen, device=dev).tolist()
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.randn(50021, generator=gen, device=dev).to(dtype)
+        pieces = [n[i] if i % 7 == 0 else base[lo[i]:lo[i] + n[i]]
+                  for i in range(1200)]
+        flat = torch.randn(3 * sum(widths), generator=gen,
+                           device=dev).to(dtype)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            packed = ops.pack_ragged(pieces)
+            split = ops.unpack_columns(flat, widths, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert_bitwise(packed, ref.pack_ragged_ref(pieces, dtype=dtype,
+                                                   device=dev),
+                       f"pack_ragged, 1,200 pieces {dtype}")
+        for a, b in zip(split, ref.unpack_columns_ref(flat, widths, 3)):
+            assert_bitwise(a, b, f"unpack_columns, 1,100 columns {dtype}")
+    say("kernels", "pack_ragged (1,200 pieces) and unpack_columns (3 rows x "
+                   "1,100 columns), f32 and bf16: no stream synchronisation "
+                   "under torch.cuda.set_sync_debug_mode('error'); bitwise")
+
+
+def in_turns(kernel, library, rounds: int = 4, iters: int = 5) -> tuple:
+    """Kernel and library times by CUDA events, in turns (kernel, library,
+    library, kernel) over ``rounds`` rounds: two lists of 2 * rounds."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kernel, iters))
+        ls.extend(cuda_ms(library, iters) for _ in range(2))
+        ks.append(cuda_ms(kernel, iters))
+    return ks, ls
 
 
 def time_bucket_kernels(gen, dev, plan, specs) -> dict:
@@ -256,13 +336,14 @@ def time_bucket_kernels(gen, dev, plan, specs) -> dict:
     plain = ref.pack_ragged_ref(shards, dtype=torch.float32, device=dev)
     assert_bitwise(packed, plain, "bucket_pack at the main path's bucket")
     del plain
+    ks, ls = in_turns(lambda: ops.pack_ragged(shards),
+                      lambda: torch.cat(shards))
     out["bucket_pack"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: ops.pack_ragged(shards), iters),
+        max_abs_err=0.0, ms=sum(ks) / len(ks),
         plain_ms=cuda_ms(lambda: ref.pack_ragged_ref(
             shards, dtype=torch.float32, device=dev), iters),
-        library_ms=cuda_ms(lambda: torch.cat(shards), iters),
-        bound_ms=bound, bound_by="bytes")
+        library_ms=sum(ls) / len(ls), bound_ms=bound, bound_by="bytes",
+        ms_range=[min(ks), max(ks)], library_ms_range=[min(ls), max(ls)])
     del shards
 
     fulls = ops.unpack_columns(packed, widths, 1)
@@ -270,16 +351,28 @@ def time_bucket_kernels(gen, dev, plan, specs) -> dict:
         assert_bitwise(a, b, "bucket_unpack at the main path's bucket")
     del fulls
     grid = packed.view(1, -1)
+    ks, ls = in_turns(
+        lambda: ops.unpack_columns(packed, widths, 1),
+        lambda: torch.split_with_sizes_copy(grid, widths, dim=1))
     out["bucket_unpack"] = dict(
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: ops.unpack_columns(packed, widths, 1), iters),
+        max_abs_err=0.0, ms=sum(ks) / len(ks),
         plain_ms=cuda_ms(lambda: ref.unpack_columns_ref(packed, widths, 1),
                          iters),
-        library_ms=cuda_ms(
-            lambda: torch.split_with_sizes_copy(grid, widths, dim=1), iters),
-        bound_ms=bound, bound_by="bytes")
+        library_ms=sum(ls) / len(ls), bound_ms=bound, bound_by="bytes",
+        ms_range=[min(ks), max(ks)], library_ms_range=[min(ls), max(ls)])
     say("kernels", f"main-path bucket: {len(bucket)} layers, "
                    f"{nbytes / 1e9:.3f} GB f32")
+    for name, lib in (("bucket_pack", "torch.cat"),
+                      ("bucket_unpack", "split_with_sizes_copy")):
+        r = out[name]
+        say("kernels", f"{name} in turns with {lib} (4 rounds of kernel, "
+                       f"library, library, kernel; 5 calls each): "
+                       f"{r['ms']:.4f} ms [{r['ms_range'][0]:.4f}-"
+                       f"{r['ms_range'][1]:.4f}] against {r['library_ms']:.4f}"
+                       f" [{r['library_ms_range'][0]:.4f}-"
+                       f"{r['library_ms_range'][1]:.4f}]; "
+                       f"{100 * r['bound_ms'] / r['ms']:.1f}% of the byte "
+                       f"bound {r['bound_ms']:.4f}")
     return out
 
 
@@ -334,8 +427,9 @@ def check_flash(gen, dev, arch) -> dict:
         rec = time_flash(gen, dev, arch, 0, "main")
         # the hybrid path's: GQA 10/1, hd 256, window 2048 (T = 1024 < it)
         hybrid = get_config(HYBRID["arch"])
-        time_flash(gen, dev, hybrid, hybrid.sliding_window, "hybrid")
-    return {"flash_attention_fwd": rec}
+        rec256 = time_flash(gen, dev, hybrid, hybrid.sliding_window,
+                            "hybrid")
+    return {"flash_attention_fwd": rec, "flash_attention_fwd@hd256": rec256}
 
 
 def time_flash(gen, dev, arch, window: int, path: str) -> dict:
@@ -367,10 +461,12 @@ def time_flash(gen, dev, arch, window: int, path: str) -> dict:
             q, k, v, is_causal=True, enable_gqa=True), iters),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
+    rec["tflops"] = flops / rec["ms"] / 1e9
     say("kernels", f"flash_attention_fwd at the {path} path's (B={b}, "
                    f"H={h}/{hkv}, T={t}, hd={hd}, window {window}) f32: max "
-                   f"abs err {err:.3g}; {flops / rec['ms'] / 1e9:.2f} "
-                   f"TFLOP/s; {rec['ms']:.4f} ms (plain "
+                   f"abs err {err:.3g}; {rec['tflops']:.2f} TFLOP/s = "
+                   f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound; "
+                   f"{rec['ms']:.4f} ms (plain "
                    f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, "
                    f"bound {rec['bound_ms']:.4f} by {rec['bound_by']})")
     return rec
@@ -1042,6 +1138,8 @@ def main(argv=None) -> None:
         for name in names:
             counts[name] = ps_counts[scheme][name]
     counts["rglru_scan"] = hybrid_counts["rglru_scan"]
+    counts["flash_attention_fwd@hd256"] = \
+        hybrid_counts["flash_attention_fwd"]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

@@ -13,14 +13,17 @@ Two forms, one kernel (``csrc/bucket_pack.cu``):
 Dispatch goes by the tensor's device only: on a CPU tensor the plain
 version in ``ref.py`` runs; on a CUDA tensor the kernel launches or the
 wrapper raises.  ``LAUNCHES`` counts kernel launches, one per call that
-reaches the card.
+reaches the card.  A launch never waits for the card: its table of pieces
+goes up from pinned host memory by an asynchronous copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -33,13 +36,59 @@ TILE = 512  # the reference's alignment unit (4 sublanes x 128 lanes at f32)
 DTYPES = (torch.float32, torch.bfloat16)
 LAUNCHES: Dict[str, int] = {"bucket_pack": 0, "bucket_unpack": 0}
 
-_MAX_PIECES = 65535          # grid.y limit: one block row per piece
-_BYTES_PER_BLOCK = 65536     # work per block before it grid-strides
-_MAX_BLOCKS_PER_PIECE = 2048
-
 
 def aligned(n: int) -> int:
     return ((n + TILE - 1) // TILE) * TILE
+
+
+def split_work(pieces: Sequence[Tuple[int, int, int]]
+               ) -> Tuple[np.ndarray, int]:
+    """The kernel's table: ``pieces`` (src address or 0, dst address,
+    bytes) as ``(n, 4)`` int64 rows ``(begin, src, dst, bytes)``, where
+    ``begin`` is the piece's offset in the pieces' concatenated byte range,
+    empty pieces dropped; and that range's length.
+
+    The kernel cuts the range into 16 KB chunks (``kChunk``), one block
+    each, so work is split by bytes, not by piece: block c copies bytes
+    ``[c * kChunk, (c + 1) * kChunk)``, the last block the rest.
+    """
+    p = np.asarray(pieces, dtype=np.int64).reshape(-1, 3)
+    p = p[p[:, 2] > 0]
+    ends = np.cumsum(p[:, 2])
+    table = np.concatenate([(ends - p[:, 2])[:, None], p], axis=1)
+    return table, int(ends[-1]) if len(p) else 0
+
+
+class _Staging:
+    """Pinned host buffers for the tables.  A buffer is filled again only
+    once the copy that read it has run (its CUDA event has passed), and a
+    new one is made when none is free, so no launch waits for the card."""
+
+    def __init__(self) -> None:
+        self._slots: List[list] = []            # [pinned int64, event]
+        self._lock = threading.Lock()
+
+    def upload(self, table: np.ndarray, device: torch.device) -> torch.Tensor:
+        n = table.size
+        stream = torch.cuda.current_stream(device)
+        with self._lock:
+            slot = next((s for s in self._slots if s[0].numel() >= n
+                         and s[1].query()), None)
+            if slot is None:
+                slot = [torch.empty(max(1024, 1 << (n - 1).bit_length()),
+                                    dtype=torch.int64, pin_memory=True),
+                        None]
+                self._slots.append(slot)
+            host = slot[0][:n]
+            host.numpy()[:] = table.reshape(-1)
+            out = torch.empty(n, dtype=torch.int64, device=device)
+            out.copy_(host, non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record(stream)
+        return out
+
+
+_STAGING = _Staging()
 
 
 def _check_aligned_lengths(aligned_lengths: Sequence[int],
@@ -71,20 +120,15 @@ def _on_cpu(x: torch.Tensor, what: str) -> bool:
 def _launch(kind: str, pieces: List[Tuple[int, int, int]],
             device: torch.device) -> None:
     """One kernel launch over ``(src address or 0, dst address, bytes)``."""
-    pieces = [p for p in pieces if p[2] > 0]
-    if not pieces:
+    table, total = split_work(pieces)
+    if not total:
         return
-    if len(pieces) > _MAX_PIECES:
-        raise ValueError(f"{kind}: {len(pieces)} pieces exceed the launch "
-                         f"limit of {_MAX_PIECES}")
-    table = torch.tensor(pieces, dtype=torch.int64).to(device)
-    blocks = max(1, min(_MAX_BLOCKS_PER_PIECE,
-                        -(-max(p[2] for p in pieces) // _BYTES_PER_BLOCK)))
     fn = _build.library("bucket_pack").repro_copy_pieces
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    status = fn(table.data_ptr(), len(pieces), blocks,
+    on_card = _STAGING.upload(table, device)      # held until launched
+    status = fn(on_card.data_ptr(), len(table), total,
                 torch.cuda.current_stream(device).cuda_stream)
     LAUNCHES[kind] += 1
     _build.check(status, kind)

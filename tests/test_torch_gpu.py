@@ -68,6 +68,14 @@ def test_pack_unpack_bitwise_vs_plain(cuda, dtype):
     (2, 4, 4, 16, 64, True, 0, 0.0),
     (1, 10, 1, 1024, 256, True, 2048, 0.0),      # recurrentgemma-2b's heads
     (1, 2, 1, 300, 256, True, 128, 0.0),         # hd 256, the window bites
+    (2, 32, 8, 1024, 64, True, 0, 0.0),          # the main path's call
+    (2, 10, 1, 1024, 256, True, 2048, 0.0),      # the hybrid path's call
+    (1, 2, 1, 130, 64, True, 0, 0.0),            # T past a 128-row q tile
+    (1, 2, 2, 333, 256, False, 0, 0.0),          # ragged T, no mask
+    (1, 2, 2, 70, 96, True, 0, 0.0),             # hd 96 inside 128
+    (1, 2, 1, 200, 112, True, 0, 20.0),          # hd 112 inside 128
+    (1, 2, 2, 300, 80, True, 37, 0.0),           # window edge inside a tile
+    (1, 4, 2, 129, 256, True, 40, 0.0),          # the same at hd 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_vs_plain(cuda, case, dtype):
@@ -82,6 +90,36 @@ def test_flash_vs_plain(cuda, case, dtype):
     torch.testing.assert_close(flash_ops.flash_attention(*args).float(),
                                flash_ops._ref_fwd(*args).float(),
                                atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_unpack_never_sync_the_stream(cuda, dtype):
+    """1,200 pieces over the three alignment classes (16-byte, 4-byte and
+    2-byte offsets, and zero runs) packed and split with the sync debug
+    mode set to raise: the table goes up without a synchronize."""
+    base = torch.randn(50021, device=cuda).to(dtype)
+    gen = np.random.default_rng(0)
+    pieces = []
+    for i in range(1200):
+        lo, n = int(gen.integers(0, 40000)), int(gen.integers(1, 300))
+        pieces.append(n if i % 7 == 0 else base[lo:lo + n])
+    widths = [int(w) for w in gen.integers(1, 90, size=1100)]
+    flat = torch.randn(3 * sum(widths), device=cuda).to(dtype)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        packed = ops.pack_ragged(pieces)
+        split = ops.unpack_columns(flat, widths, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = launch_counts()
+    assert after["bucket_pack"] == before["bucket_pack"] + 1
+    assert after["bucket_unpack"] == before["bucket_unpack"] + 1
+    assert torch.equal(_bits(packed), _bits(ref.pack_ragged_ref(
+        pieces, dtype=dtype, device=cuda)))
+    for a, b in zip(split, ref.unpack_columns_ref(flat, widths, 3)):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def test_flash_gradient_is_the_plain_vjp(cuda):

@@ -146,6 +146,110 @@ class TestBucketPack:
             ops.pack_ragged([torch.ones(4, device="meta")])
 
 
+def _fake_pieces(seed, n_pieces, zero_share=0.2, empty_share=0.2):
+    """Pieces over a fake address space: sources at random offsets of a
+    byte array (0 = zeros), destinations back to back from offset 0."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 5000, size=n_pieces)
+    lens[rng.random(n_pieces) < empty_share] = 0
+    pieces, off = [], 0
+    for n in lens:
+        src = 0 if rng.random() < zero_share else int(rng.integers(1, 60000))
+        pieces.append((src, off, int(n)))
+        off += int(n)
+    return pieces, off
+
+
+def _chunk_rows(table, total, c, chunk):
+    """The rows block c of ``csrc/bucket_pack.cu`` copies, walked as the
+    kernel walks them: bisection for the last piece that begins at or
+    before the chunk, then forward while pieces begin inside it."""
+    lo, hi = c * chunk, min((c + 1) * chunk, total)
+    p = int(np.searchsorted(table[:, 0], lo, side="right")) - 1
+    rows = []
+    for begin, src, dst, n in table[p:].tolist():
+        if begin >= hi:
+            break
+        a = max(begin, lo)
+        rows.append((src + a - begin if src else 0, dst + a - begin,
+                     min(begin + n, hi) - a))
+    return rows
+
+
+def _run_rows(rows, memory, size):
+    out = np.full(size, 0xAB, np.uint8)
+    for src, dst, n in rows:
+        out[dst:dst + n] = memory[src:src + n] if src else 0
+    return out
+
+
+SPLITS = [(0, 1, 64), (1, 7, 100), (2, 40, 1024), (3, 200, 4096),
+          (4, 3, 16384)]
+
+
+class TestSplitWork:
+    """The host side of the copy kernel: the table of pieces it walks, and
+    the split of the pieces' concatenated byte range into one fixed-size
+    chunk per block (mirrored here as the kernel computes it)."""
+
+    @pytest.mark.parametrize("seed,n_pieces,chunk", SPLITS)
+    def test_every_byte_once_and_in_order(self, seed, n_pieces, chunk):
+        pieces, size = _fake_pieces(seed, n_pieces)
+        memory = np.random.default_rng(99).integers(0, 256, 70000,
+                                                    dtype=np.uint8)
+        table, total = ops.split_work(pieces)
+        assert total == size == int(table[:, 3].sum())
+        rows = [r for c in range(-(-total // chunk))
+                for r in _chunk_rows(table, total, c, chunk)]
+        assert all(n > 0 for _, _, n in rows)
+        # in order: the rows walk the destination range once, back to back
+        dst = np.array([d for _, d, _ in rows] + [size])
+        np.testing.assert_array_equal(
+            dst[1:], dst[:-1] + np.array([n for _, _, n in rows]))
+        want = np.concatenate(
+            [memory[s:s + n] if s else np.zeros(n, np.uint8)
+             for s, _, n in pieces] + [np.zeros(0, np.uint8)])
+        np.testing.assert_array_equal(_run_rows(rows, memory, size), want)
+
+    @pytest.mark.parametrize("seed,n_pieces,chunk", SPLITS)
+    def test_chunks_differ_by_at_most_one_unit(self, seed, n_pieces, chunk):
+        pieces, size = _fake_pieces(seed, n_pieces)
+        table, total = ops.split_work(pieces)
+        sizes = [sum(n for _, _, n in _chunk_rows(table, total, c, chunk))
+                 for c in range(-(-total // chunk))]
+        assert sum(sizes) == size
+        assert all(x == chunk for x in sizes[:-1])
+        assert 0 < sizes[-1] <= chunk
+
+    def test_table_rows_are_the_pieces_in_range_order(self):
+        pieces = [(0, 0, 100), (5000, 100, 0), (7, 100, 33), (0, 133, 0),
+                  (0, 133, 1000)]
+        table, total = ops.split_work(pieces)
+        assert table.dtype == np.int64 and total == 1133
+        np.testing.assert_array_equal(table, [[0, 0, 0, 100],
+                                              [100, 7, 100, 33],
+                                              [133, 0, 133, 1000]])
+
+    def test_zero_runs_and_empty_pieces(self):
+        pieces = [(0, 0, 100), (5000, 100, 0), (7, 100, 33), (0, 133, 0),
+                  (0, 133, 1000)]
+        table, total = ops.split_work(pieces)
+        rows = [r for c in range(-(-total // 48))
+                for r in _chunk_rows(table, total, c, 48)]
+        # zero runs keep source 0 in every row cut from them
+        assert {s for s, d, _ in rows if d < 100 or d >= 133} == {0}
+        assert all(s - 7 == d - 100 for s, d, _ in rows if 100 <= d < 133)
+        table, total = ops.split_work([(3, 0, 0), (0, 0, 0)])
+        assert table.shape == (0, 4) and total == 0
+
+    def test_deterministic(self):
+        pieces, _ = _fake_pieces(5, 60)
+        a = ops.split_work(pieces)
+        b = ops.split_work(list(pieces))
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1] == b[1]
+
+
 FLASH_CASES = [
     # (b, h, hkv, t, hd, causal, window, cap)
     (1, 2, 1, 128, 64, True, 0, 0.0),          # GQA
