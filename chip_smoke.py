@@ -10,8 +10,10 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    shapes, with the kernel's, the plain version's and one library call's
    times beside the least time the card could take (flash at both paths'
    head dims, 64 and 256, as two records; pack and unpack in turns with
-   ``torch.cat`` / ``split_with_sizes_copy``), and pack / unpack on 1,200
-   pieces under ``torch.cuda.set_sync_debug_mode("error")``;
+   ``torch.cat`` / ``split_with_sizes_copy``, sparsify with
+   ``torch.gather``), the RG-LRU scan forward and its fused backward, and
+   pack / unpack on 1,200 pieces under
+   ``torch.cuda.set_sync_debug_mode("error")``;
 3. ``main``: 3 ZeRO steps of full-width granite-3-2b under the DynaComm
    plan, with the kernels' launches in those steps asserted against the
    plan;
@@ -22,7 +24,8 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    each path again from the same seed with the round trip composed from
    the plain versions, whose losses must equal the kernel path's bitwise;
 5. ``hybrid``: 3 ZeRO steps of full-width recurrentgemma-2b (18 RG-LRU
-   blocks through the ``rglru_scan`` kernel, 8 local-attention blocks
+   blocks through the ``rglru_scan`` kernel and its fused backward
+   ``rglru_scan_bwd``, 8 local-attention blocks
    through flash attention at head dim 256), launches asserted against the
    plan and the layer kinds; then the same steps with the scan replaced by
    its plain loop (autograd through it), whose losses must equal bitwise;
@@ -101,7 +104,8 @@ FLASH_SWEEP = ((2, 4, 2, 256, 64, True, 0, 0.0),
                (1, 2, 2, 300, 80, True, 37, 0.0),
                (1, 4, 2, 129, 256, True, 40, 0.0))
 # (b, t, w): ragged widths and lengths, then the hybrid path's shape
-RGLRU_SWEEP = ((1, 200, 100), (3, 17, 33), (1, 1, 5), (2, 1024, 2560))
+RGLRU_SWEEP = ((1, 200, 100), (3, 17, 33), (1, 1, 5), (70000, 3, 5),
+               (2, 1024, 2560))
 REPLACES = {
     "bucket_pack": "src/repro/kernels/bucket_pack/bucket_pack.py:76",
     "bucket_unpack": "src/repro/kernels/bucket_pack/bucket_pack.py:124",
@@ -114,6 +118,7 @@ REPLACES = {
     "compress_sparsify": "src/repro/kernels/compress/compress.py:178",
     "compress_densify": "src/repro/kernels/compress/compress.py:210",
     "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
+    "rglru_scan_bwd": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
 }
 SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
@@ -124,26 +129,75 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "compress_dequantize": "src/repro_torch/csrc/compress.cu",
            "compress_sparsify": "src/repro_torch/csrc/compress.cu",
            "compress_densify": "src/repro_torch/csrc/compress.cu",
-           "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu"}
+           "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
+           "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan.cu"}
+PORT_KERNELS = ("copy_chunks_kernel", "flash_fwd_kernel",    # csrc/*.cu
+                "quantize_pack_kernel", "dequantize_unpack_kernel",
+                "sparsify_kernel", "densify_kernel", "rglru_scan_kernel")
+SECTOR_BYTES = 32        # the least a random 4-byte gather moves from DRAM
+L2_FLUSH_BYTES = 128 << 20               # > the H100's 50 MB of L2
+HOST_AHEAD_CYCLES = 20_000_000           # ~10 ms of SM clock at 1.98 GHz
 
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+def host_ahead() -> None:
+    """Queue a device-side wait (about 10 ms at the H100's clock) so the
+    host enqueues the calls timed after it before the first one runs: the
+    events then read the device's time back to back, not the host's
+    per-call overhead (Python, ctypes), which exceeds a 0.03 ms kernel on a
+    slow host."""
+    torch.cuda._sleep(HOST_AHEAD_CYCLES)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2, ahead: bool = True) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events;
+    ``ahead=False`` for a loop the host paces (tens of ms of launches),
+    whose time the wait would partly hide."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        host_ahead()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def warm_up(fn, seconds: float = 0.2) -> None:
+    """Launch ``fn`` back to back for ``seconds`` of host time: a card left
+    idle by host-bound work (the plain loops) times short kernels slow
+    until its clocks come back up."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+
+
+def cuda_ms_cold(fn, iters: int) -> float:
+    """Mean device time of ``fn`` with a cold L2: a buffer larger than the
+    L2 is overwritten before each call, outside its events."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    host_ahead()
+    for start, end in events:
+        flush.fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
 def free_cuda() -> None:
@@ -526,10 +580,17 @@ def check_compress_kernels(gen, dev) -> None:
     neg_zero = (bits(vals) == bits(torch.tensor(-0.0, device=dev))).sum()
     if not ((idx == -1).any() and neg_zero > 0):
         raise AssertionError("the top-k sweep chose no -0.0 or left no -1")
+    many = torch.randn(70000, 9, generator=gen, device=dev)   # > grid.y rows
+    many_idx = torch.randint(-1, 9, (70000, 3), generator=gen, device=dev,
+                             dtype=torch.int32)
+    assert_bitwise(ops.sparsify(many, many_idx),
+                   ref.sparsify_ref(many, many_idx),
+                   "compress_sparsify on 70,000 rows")
     say("kernels", f"compress_quantize / _dequantize (and the feedback "
                    f"residual) bitwise on {len(COMPRESS_SWEEP)} ragged sweeps "
                    f"with zero, tiny, NaN and inf tiles; compress_sparsify / "
-                   f"_densify bitwise at k = 1, 64, 700 with "
+                   f"_densify bitwise at k = 1, 64, 700 (sparsify also on "
+                   f"70,000 rows) with "
                    f"{int((idx == -1).sum())} -1 slots and {int(neg_zero)} "
                    f"chosen -0.0")
 
@@ -599,12 +660,32 @@ def time_compress_kernels(gen, dev, specs) -> dict:
     assert_bitwise(vals, ref.sparsify_ref(row, idx),
                    "compress_sparsify at the embedding")
     slots = int((idx >= 0).sum())
+    warm_up(lambda: ops.sparsify(row, idx))
+    ks, ls = in_turns(lambda: ops.sparsify(row, idx),
+                      lambda: torch.gather(row, 1, idx_long), iters=20)
     out["compress_sparsify"] = dict(
-        max_abs_err=0.0, ms=cuda_ms(lambda: ops.sparsify(row, idx), 20),
+        max_abs_err=0.0, ms=sum(ks) / len(ks),
         plain_ms=cuda_ms(lambda: ref.sparsify_ref(row, idx), 20),
-        library_ms=cuda_ms(lambda: torch.gather(row, 1, idx_long), 20),
+        library_ms=sum(ls) / len(ls),
         bound_ms=(4 * k + 4 * slots + 4 * k) / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes")
+        bound_by="bytes",
+        ms_range=[min(ks), max(ks)], library_ms_range=[min(ls), max(ls)],
+        ms_cold_l2=cuda_ms_cold(lambda: ops.sparsify(row, idx), 20),
+        library_ms_cold_l2=cuda_ms_cold(
+            lambda: torch.gather(row, 1, idx_long), 20))
+    r = out["compress_sparsify"]
+    # each gathered value in its own sector: what DRAM must move at least
+    floor_ms = (4 * k + SECTOR_BYTES * slots + 4 * k) / HBM_BYTES_PER_S * 1e3
+    say("kernels", f"compress_sparsify in turns with torch.gather (4 rounds "
+                   f"of kernel, library, library, kernel; 20 calls each): "
+                   f"{r['ms']:.4f} ms [{r['ms_range'][0]:.4f}-"
+                   f"{r['ms_range'][1]:.4f}] against {r['library_ms']:.4f} "
+                   f"[{r['library_ms_range'][0]:.4f}-"
+                   f"{r['library_ms_range'][1]:.4f}]; cold L2 "
+                   f"{r['ms_cold_l2']:.4f} against "
+                   f"{r['library_ms_cold_l2']:.4f}; byte bound "
+                   f"{r['bound_ms']:.4f}, sector floor {floor_ms:.4f} "
+                   f"({slots} gathered slots)")
     assert_bitwise(ops.densify(vals, idx, n), ref.densify_ref(vals, idx, n),
                    "compress_densify at the embedding")
     out["compress_densify"] = dict(
@@ -628,9 +709,11 @@ def _scan_inputs(gen, dev, b, t, w, dtype):
 
 def check_rglru(gen, dev) -> dict:
     """``rglru_scan`` bitwise against its plain loop, forward and reverse,
-    f32 and bf16, on ragged shapes and the hybrid path's; its autograd
-    gradient bitwise against the plain backward; then timed forward at the
-    path's shape, (B, T, W) = (2, 1024, 2560) f32."""
+    and its fused backward against the plain composition, f32 and bf16, on
+    ragged shapes and the hybrid path's; its autograd gradient bitwise
+    against the plain backward; then both timed at the path's shape,
+    (B, T, W) = (2, 1024, 2560) f32."""
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.rglru_scan import ops, ref
     for b, t, w in RGLRU_SWEEP:
         for dtype in (torch.float32, torch.bfloat16):
@@ -640,33 +723,86 @@ def check_rglru(gen, dev) -> dict:
                                ref.rglru_scan_ref(a, x, reverse),
                                f"rglru_scan {(b, t, w)} {dtype} reverse="
                                f"{reverse}")
+            h = ops.scan(a, x)
+            g = torch.randn(a.shape, generator=gen, device=dev).to(dtype)
+            before = launch_counts()["rglru_scan_bwd"]
+            got = ops.scan_backward(a, h, g)
+            if launch_counts()["rglru_scan_bwd"] != before + 1:
+                raise AssertionError("scan_backward is not one launch")
+            for mine, plain, what in zip(
+                    got, ref.rglru_scan_backward_ref(a, h, g), ("da", "dx")):
+                assert_bitwise(mine, plain, f"rglru_scan_bwd {what} "
+                                            f"{(b, t, w)} {dtype}")
     a, x = _scan_inputs(gen, dev, 2, 200, 100, torch.float32)
     g = torch.randn(a.shape, generator=gen, device=dev)
     ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
     h = ops.rglru_scan(ta, tx)
     h.backward(g)
-    dh = ref.rglru_scan_ref(torch.nn.functional.pad(a[:, 1:], (0, 0, 0, 1)),
-                            g, reverse=True)
-    h_prev = torch.nn.functional.pad(h.detach()[:, :-1], (0, 0, 1, 0))
-    assert_bitwise(tx.grad, dh, "rglru_scan gradient of x")
-    assert_bitwise(ta.grad, dh * h_prev, "rglru_scan gradient of a")
+    da, dx = ref.rglru_scan_backward_ref(a, h.detach(), g)
+    assert_bitwise(tx.grad, dx, "rglru_scan gradient of x")
+    assert_bitwise(ta.grad, da, "rglru_scan gradient of a")
     say("kernels", f"rglru_scan bitwise on {len(RGLRU_SWEEP)} shapes x f32 / "
-                   f"bf16 x forward / reverse; its gradient bitwise against "
-                   f"the plain reverse scan")
+                   f"bf16 x forward / reverse; rglru_scan_bwd (one launch) "
+                   f"bitwise against the plain composition on the same; the "
+                   f"autograd gradient bitwise against it")
 
     b, t, w = RGLRU_SWEEP[-1]
     a, x = _scan_inputs(gen, dev, b, t, w, torch.float32)
-    assert_bitwise(ops.scan(a, x), ref.rglru_scan_ref(a, x),
+    g = torch.randn(a.shape, generator=gen, device=dev)
+    h = ops.scan(a, x)
+    assert_bitwise(h, ref.rglru_scan_ref(a, x),
                    "rglru_scan at the hybrid path's shape")
-    rec = dict(max_abs_err=0.0, ms=cuda_ms(lambda: ops.scan(a, x), 20),
-               plain_ms=cuda_ms(lambda: ref.rglru_scan_ref(a, x), 3),
-               library_ms=None,
-               bound_ms=3 * 4 * a.numel() / HBM_BYTES_PER_S * 1e3,
+    for mine, plain, what in zip(ops.scan_backward(a, h, g),
+                                 ref.rglru_scan_backward_ref(a, h, g),
+                                 ("da", "dx")):
+        assert_bitwise(mine, plain, f"rglru_scan_bwd {what} at the hybrid "
+                                    f"path's shape")
+
+    def four_passes():      # the backward it replaces: pad, scan, pad, mul
+        dh = ops.scan(torch.nn.functional.pad(a[:, 1:], (0, 0, 0, 1)), g,
+                      reverse=True)
+        return dh * torch.nn.functional.pad(h[:, :-1], (0, 0, 1, 0)), dh
+
+    nbytes = 4 * a.numel()
+    fwd = dict(max_abs_err=0.0,
+               plain_ms=cuda_ms(lambda: ref.rglru_scan_ref(a, x), 3,
+                                ahead=False),
+               library_ms=None, bound_ms=3 * nbytes / HBM_BYTES_PER_S * 1e3,
                bound_by="bytes")
-    say("kernels", f"rglru_scan at the hybrid path's (B={b}, T={t}, W={w}) "
-                   f"f32: {rec['ms']:.4f} ms = "
-                   f"{rec['ms'] / rec['bound_ms']:.1f}x its byte bound")
-    return {"rglru_scan": rec}
+    bwd = dict(max_abs_err=0.0,
+               plain_ms=cuda_ms(
+                   lambda: ref.rglru_scan_backward_ref(a, h, g), 3,
+                   ahead=False),
+               library_ms=None, bound_ms=5 * nbytes / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    # 8 samples of 20 launches after a warm-up; the backward in turns with
+    # the four passes it replaced
+    warm_up(lambda: ops.scan(a, x))
+    ks = [cuda_ms(lambda: ops.scan(a, x), 20) for _ in range(8)]
+    fwd.update(ms=sum(ks) / len(ks), ms_range=[min(ks), max(ks)],
+               ms_cold_l2=cuda_ms_cold(lambda: ops.scan(a, x), 20))
+    warm_up(lambda: ops.scan_backward(a, h, g))
+    ks, ls = in_turns(lambda: ops.scan_backward(a, h, g), four_passes,
+                      iters=20)
+    bwd.update(ms=sum(ks) / len(ks), ms_range=[min(ks), max(ks)],
+               ms_cold_l2=cuda_ms_cold(lambda: ops.scan_backward(a, h, g),
+                                       20),
+               four_pass_ms=sum(ls) / len(ls),
+               four_pass_ms_range=[min(ls), max(ls)])
+    for name, r in (("rglru_scan", fwd), ("rglru_scan_bwd", bwd)):
+        say("kernels", f"{name} at the hybrid path's (B={b}, T={t}, W={w}) "
+                       f"f32: {r['ms']:.4f} ms [{r['ms_range'][0]:.4f}-"
+                       f"{r['ms_range'][1]:.4f}] = "
+                       f"{100 * r['bound_ms'] / r['ms']:.1f}% of its byte "
+                       f"bound {r['bound_ms']:.4f}; cold L2 "
+                       f"{r['ms_cold_l2']:.4f}")
+    say("kernels", f"rglru_scan_bwd in turns with the four passes it "
+                   f"replaces (pad, reverse scan kernel, pad, multiply; 4 "
+                   f"rounds, 20 calls each): {bwd['ms']:.4f} ms against "
+                   f"{bwd['four_pass_ms']:.4f} "
+                   f"[{bwd['four_pass_ms_range'][0]:.4f}-"
+                   f"{bwd['four_pass_ms_range'][1]:.4f}]")
+    return {"rglru_scan": fwd, "rglru_scan_bwd": bwd}
 
 
 def phase_kernels(arch, plan, specs) -> dict:
@@ -747,15 +883,16 @@ def phase_main(profile: bool) -> dict:
 def expected_launches(plan, arch, compress) -> dict:
     """Kernel launches over STEPS steps of a plan: one pack per bucket,
     one unpack per pull bucket, the flash forward twice per attention
-    block (forward and recompute), the RG-LRU scan three times per RG-LRU
-    block (forward, recompute and the reverse scan of the backward), and
-    one launch of each ``compress`` kernel per sched layer."""
+    block (forward and recompute), the RG-LRU scan twice per RG-LRU block
+    (forward and recompute) and its fused backward once, and one launch of
+    each ``compress`` kernel per sched layer."""
     kinds = arch.layer_kinds()
     per_step = {"bucket_pack": len(plan.forward) + len(plan.backward),
                 "bucket_unpack": len(plan.forward),
                 "flash_attention_fwd": 2 * sum(
                     k in ("global_attn", "local_attn") for k in kinds),
-                "rglru_scan": 3 * kinds.count("rglru")}
+                "rglru_scan": 2 * kinds.count("rglru"),
+                "rglru_scan_bwd": kinds.count("rglru")}
     layers = sum(len(b) for b in plan.backward)
     for name in PS_SCHEMES[0][1] + PS_SCHEMES[1][1]:
         per_step[name] = layers if name in compress else 0
@@ -961,13 +1098,13 @@ def phase_hybrid(profile: bool) -> dict:
         rt = build_runtime(config)
         reset_launch_counts()
         plain = rt.fit(STEPS)
-        ran = launch_counts()["rglru_scan"]
+        ran = {k: launch_counts()[k] for k in ("rglru_scan", "rglru_scan_bwd")}
     finally:
         ssm.rglru_scan = kernel_scan
     del rt
     free_cuda()
-    if ran:
-        raise AssertionError(f"the plain run launched rglru_scan {ran} times")
+    if any(ran.values()):
+        raise AssertionError(f"the plain run launched the scan kernels {ran}")
     if plain != losses:
         gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
         raise AssertionError(f"hybrid: kernel path losses {losses} != plain "
@@ -979,8 +1116,9 @@ def phase_hybrid(profile: bool) -> dict:
 
 
 def profile_step(rt, steady: float, phase: str = "profile") -> None:
-    """One more step under ``torch.profiler``: device time by kernel, and
-    the device's idle share of an untraced steady step."""
+    """One more step under ``torch.profiler``: device time by kernel (the
+    twelve largest and every kernel of ``csrc/``), and the device's idle
+    share of an untraced steady step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -996,9 +1134,11 @@ def profile_step(rt, steady: float, phase: str = "profile") -> None:
                f"step ({steady * 1e3:.1f} ms); idle "
                f"{100 * max(0.0, 1 - busy / steady):.1f}%")
     rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:12]:
-        say(phase, f"{e.self_device_time_total / 1e3:9.2f} ms "
-                   f"{e.count:5d}x  {e.key[:80]}")
+    ours = re.compile("|".join(PORT_KERNELS))
+    for i, e in enumerate(rows):
+        if i < 12 or ours.search(e.key):      # the port's own kernels too
+            say(phase, f"{e.self_device_time_total / 1e3:9.2f} ms "
+                       f"{e.count:5d}x  {e.key[:80]}")
 
 
 # ---------------------------------------------------------------------------
@@ -1137,7 +1277,8 @@ def main(argv=None) -> None:
     for scheme, names in PS_SCHEMES:
         for name in names:
             counts[name] = ps_counts[scheme][name]
-    counts["rglru_scan"] = hybrid_counts["rglru_scan"]
+    for name in ("rglru_scan", "rglru_scan_bwd"):
+        counts[name] = hybrid_counts[name]
     counts["flash_attention_fwd@hd256"] = \
         hybrid_counts["flash_attention_fwd"]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],

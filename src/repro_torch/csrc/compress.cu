@@ -36,9 +36,23 @@
 //   (fmaf), which is how XLA computes the reference's `corrected -
 //   compressed` under jit: it fuses the subtraction with the dequantizing
 //   product.  Rounding the product first would differ in most elements.
-// * sparsify: one thread per (row, slot): a direct gather.  The one-hot form
-//   would cost O(kmax * Lmax) operations (10^14 at the embedding's row); the
-//   gather is exact because top-k indices are unique apart from -1.
+// * sparsify: a direct gather.  The one-hot form would cost O(kmax * Lmax)
+//   operations (10^14 at the embedding's row); the gather is exact because
+//   top-k indices are unique apart from -1.  Its byte bound counts 12 B a
+//   slot (index, value, output), but each gathered 4-byte value lies in its
+//   own 32-byte sector of a row far larger than L2, so DRAM moves at least
+//   40 B a slot: the gather is bound by random sector reads.  So: one block
+//   row per segment row (blockIdx.y: no 64-bit division per slot); a warp
+//   takes 32 * 4 consecutive slots and each lane 4 of them, 32 apart, so a
+//   lane keeps 4 independent gathers in flight while every warp
+//   instruction loads 32 consecutive indices, gathers from one narrow
+//   window of the sorted row and stores 128 contiguous bytes.  Gathers are
+//   non-allocating loads (ld.global.nc.L1::no_allocate: each sector is used
+//   once).  4 consecutive slots a lane (one int4 index load, one float4
+//   store) was slower in design runs on the card: each warp instruction
+//   then spans 4x the row, which we take to open DRAM pages for fewer
+//   sectors.  A -1 or out-of-range slot loads nothing and gives +0.0; a
+//   chosen -0.0 keeps its sign, as the plain version does.
 // * densify: one thread per (row, slot) storing 0.0f + v into the zeroed
 //   row.  The add is deliberate: the reference's .at[].add into zeros turns
 //   a chosen -0.0 into +0.0, and so does __fadd_rn(0.0f, v); a plain store
@@ -142,15 +156,43 @@ dequantize_unpack_kernel(const signed char* __restrict__ payload,
   *reinterpret_cast<float4*>(out + (long long)k * lmax + j) = r;
 }
 
+constexpr int kGathers = 4;                 // sparsify: slots a lane
+
+__device__ __forceinline__ float gather(const float* row, int i,
+                                        long long lmax) {
+  float v = 0.0f;
+  if (i >= 0 && i < lmax)
+    asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];"
+                 : "=f"(v) : "l"(row + i));
+  return v;
+}
+
+// Segment rows by blockIdx.y (striding by gridDim.y, so any K); a warp
+// takes 32 * kGathers consecutive slots of a row, lane l the slots l,
+// l + 32, ... of them.
 __global__ void __launch_bounds__(kThreads)
 sparsify_kernel(const float* __restrict__ seg, long long lmax,
-                const int* __restrict__ idx, long long kmax, long long slots,
+                const int* __restrict__ idx, long long kmax, int k_count,
                 float* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       s < slots; s += stride) {
-    const long long i = idx[s];
-    out[s] = (i >= 0 && i < lmax) ? seg[(s / kmax) * lmax + i] : 0.0f;
+  const long long stride = (long long)gridDim.x * kThreads * kGathers;
+  for (int k = blockIdx.y; k < k_count; k += gridDim.y) {
+    const float* row = seg + (long long)k * lmax;
+    const int* ri = idx + (long long)k * kmax;
+    float* ro = out + (long long)k * kmax;
+    for (long long s0 = ((long long)blockIdx.x * kThreads +
+                         (threadIdx.x & ~31)) * kGathers + (threadIdx.x & 31);
+         s0 < kmax; s0 += stride) {
+      int i[kGathers];
+#pragma unroll
+      for (int u = 0; u < kGathers; ++u)
+        i[u] = s0 + 32 * u < kmax ? ri[s0 + 32 * u] : -1;
+      float v[kGathers];
+#pragma unroll
+      for (int u = 0; u < kGathers; ++u) v[u] = gather(row, i[u], lmax);
+#pragma unroll
+      for (int u = 0; u < kGathers; ++u)
+        if (s0 + 32 * u < kmax) ro[s0 + 32 * u] = v[u];
+    }
   }
 }
 
@@ -216,11 +258,12 @@ extern "C" int repro_dequantize_unpack(const void* payload, const void* scales,
 extern "C" int repro_sparsify(const void* seg, long long lmax, const void* idx,
                               long long kmax, int k_count, void* out,
                               void* stream) {
-  const long long slots = kmax * k_count;
-  if (slots <= 0) return 0;
-  sparsify_kernel<<<grid_for(slots), kThreads, 0, (cudaStream_t)stream>>>(
+  if (kmax <= 0 || k_count <= 0) return 0;
+  dim3 grid(grid_for((kmax + kGathers - 1) / kGathers),
+            k_count < 65535 ? k_count : 65535);
+  sparsify_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(seg), lmax, static_cast<const int*>(idx), kmax,
-      slots, static_cast<float*>(out));
+      k_count, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 

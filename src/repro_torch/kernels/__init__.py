@@ -11,7 +11,7 @@ are built at first use by :mod:`repro_torch.kernels._build`.
 * ``compress`` — int8 quantize / dequantize and top-k sparsify / densify:
   the compressed gradient push of the ``ps`` runtime.
 * ``rglru_scan`` — the RG-LRU linear recurrence of recurrentgemma's
-  recurrent blocks, forward and (in reverse) backward.
+  recurrent blocks, forward (or reverse) and its fused backward.
 """
 
 from typing import Dict

@@ -1,3 +1,4 @@
-from repro_torch.kernels.rglru_scan.ops import rglru_scan, scan
+from repro_torch.kernels.rglru_scan.ops import (rglru_scan, scan,
+                                                scan_backward)
 
-__all__ = ["rglru_scan", "scan"]
+__all__ = ["rglru_scan", "scan", "scan_backward"]

@@ -4,11 +4,15 @@ The reference's oracle (``repro/kernels/rglru_scan/ref.py``) is an
 associative scan, whose tree order of products cannot be reproduced; this
 is the sequential definition instead, the one the CUDA kernel is held to
 bitwise: an fp32 carry and two roundings a step (``a·h``, then ``+ x``).
+``rglru_scan_backward_ref`` is the plain version of the fused backward.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+import torch.nn.functional as F
 
 
 def rglru_scan_ref(a: torch.Tensor, x: torch.Tensor,
@@ -24,3 +28,16 @@ def rglru_scan_ref(a: torch.Tensor, x: torch.Tensor,
         h = a[:, i].float() * h + x[:, i].float()
         out[:, i] = h.to(out.dtype)
     return out
+
+
+def rglru_scan_backward_ref(a: torch.Tensor, h: torch.Tensor,
+                            g: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``h = rglru_scan_ref(a, x)`` for the cotangent ``g``:
+    ``(da, dx)``.  ``dh`` runs the recurrence in reverse over ``a_{t+1}``
+    (``a_T = 0``) from ``g``; ``dx = dh`` and ``da = dh·h_{t-1}``
+    (``h_{-1} = 0``), the product of the two stored values rounded once."""
+    a_next = F.pad(a[:, 1:], (0, 0, 0, 1))
+    dh = rglru_scan_ref(a_next, g, reverse=True)
+    h_prev = F.pad(h[:, :-1], (0, 0, 1, 0))
+    return dh * h_prev, dh

@@ -6,9 +6,9 @@ where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each kernel is held against its plain PyTorch version on the same card
-tensors: pack / unpack, the four compression kernels and the RG-LRU scan
-bitwise, flash attention at the reference's tolerances (atol 2e-6 in f32,
-2e-2 in bf16).
+tensors: pack / unpack, the four compression kernels, the RG-LRU scan and
+its fused backward bitwise, flash attention at the reference's tolerances
+(atol 2e-6 in f32, 2e-2 in bf16).
 """
 
 import os
@@ -151,7 +151,8 @@ def test_zero_smoke_config_runs_through_the_kernels(cuda):
         "bucket_unpack": 2 * len(plan.forward),
         "flash_attention_fwd": 2 * 2 * rt.arch.num_layers,
         "compress_quantize": 0, "compress_dequantize": 0,
-        "compress_sparsify": 0, "compress_densify": 0, "rglru_scan": 0}
+        "compress_sparsify": 0, "compress_densify": 0, "rglru_scan": 0,
+        "rglru_scan_bwd": 0}
 
 
 def _bits(x):
@@ -279,7 +280,7 @@ def test_ps_smoke_config_on_the_card_matches_the_cpu(cuda, scheme, frac,
 
 
 @pytest.mark.parametrize("shape", [(1, 200, 100), (3, 17, 33), (1, 1, 5),
-                                   (2, 1024, 2560)])
+                                   (70000, 3, 5), (2, 1024, 2560)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_rglru_scan_bitwise_vs_plain(cuda, shape, dtype, reverse):
@@ -291,6 +292,66 @@ def test_rglru_scan_bitwise_vs_plain(cuda, shape, dtype, reverse):
     got = scan_ops.scan(a, x, reverse)
     assert launch_counts()["rglru_scan"] == before + 1
     _assert_bitwise(got, scan_ref.rglru_scan_ref(a, x, reverse))
+
+
+@pytest.mark.parametrize("shape", [(1, 200, 100), (3, 17, 33), (1, 1, 5),
+                                   (70000, 3, 5), (2, 1024, 2560)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_fused_backward_bitwise_vs_plain(cuda, shape, dtype):
+    """The autograd backward is one launch of the fused kernel, bitwise
+    the plain composition (pad, reverse loop, multiply)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a = (torch.rand(shape, generator=gen, device=cuda) * 0.95 + 0.05).to(
+        dtype)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
+    h = scan_ops.rglru_scan(ta, tx)
+    before = launch_counts()
+    h.backward(g)
+    after = launch_counts()
+    assert after["rglru_scan_bwd"] == before["rglru_scan_bwd"] + 1
+    assert after["rglru_scan"] == before["rglru_scan"]
+    da, dx = scan_ref.rglru_scan_backward_ref(a, h.detach(), g)
+    _assert_bitwise(ta.grad, da)
+    _assert_bitwise(tx.grad, dx)
+
+
+@pytest.mark.parametrize("kmax", [1, 2, 3, 5, 38, 131, 4099])
+def test_sparsify_bitwise_on_ragged_rows(cuda, kmax):
+    """K = 3 rows, kmax = 1, 2, 3 (mod 4) so rows start off the 16-byte
+    grid, -1 and out-of-range slots, chosen -0.0, and an index tensor that
+    is itself off the grid (a view at a 4-byte offset)."""
+    rng = np.random.default_rng(kmax)
+    lmax = 5000
+    segs = torch.from_numpy(rng.standard_normal((3, lmax)).astype(
+        np.float32)).to(cuda)
+    segs[:, ::7] = -0.0
+    idx = rng.integers(0, lmax, size=(3, kmax)).astype(np.int32)
+    idx[0, ::3] = -1
+    idx[1, ::5] = lmax                             # out of range
+    idx[2, ::2] = 7 * rng.integers(0, lmax // 7, size=idx[2, ::2].shape)
+    flat = torch.zeros(3 * kmax + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = torch.from_numpy(idx.reshape(-1)).to(cuda)
+    for indices in (flat[1:].view(3, kmax), flat[1:].clone().view(3, kmax)):
+        before = launch_counts()["compress_sparsify"]
+        got = compress_ops.sparsify(segs, indices)
+        assert launch_counts()["compress_sparsify"] == before + 1
+        _assert_bitwise(got, compress_ref.sparsify_ref(segs, indices))
+    want = compress_ref.sparsify_ref(segs, indices)
+    assert (_bits(want) == _bits(torch.tensor(-0.0, device=cuda))).any()
+
+
+def test_sparsify_takes_more_rows_than_one_grid_dimension(cuda):
+    """70,000 rows, more than a grid's y dimension holds (65,535): the
+    kernel walks the rows past it, bitwise."""
+    rng = np.random.default_rng(70000)
+    segs = torch.from_numpy(rng.standard_normal((70000, 9)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(-1, 9, size=(70000, 3)).astype(
+        np.int32)).to(cuda)
+    _assert_bitwise(compress_ops.sparsify(segs, idx),
+                    compress_ref.sparsify_ref(segs, idx))
 
 
 def test_rglru_scan_gradient_equals_the_plain_backward(cuda):
@@ -349,7 +410,7 @@ def test_hybrid_smoke_config_runs_through_the_scan_kernel(cuda):
         "flash_attention_fwd": 2 * 2 * 1,
         "compress_quantize": 0, "compress_dequantize": 0,
         "compress_sparsify": 0, "compress_densify": 0,
-        "rglru_scan": 2 * 3 * 2}
+        "rglru_scan": 2 * 2 * 2, "rglru_scan_bwd": 2 * 2}
 
 
 # Card against CPU for the reduced recurrentgemma-2b zero run, 3 steps from

@@ -11,6 +11,9 @@ Tolerances, each with its reason:
   atol 1e-5 — the reference's own (``tests/test_kernels.py::TestRGLRUScan``);
   the associative scan multiplies in another order than the sequential
   loop (measured f32 gap at most 2.4e-7, gradients 2.9e-6);
+* the backward's plain version (``ref.rglru_scan_backward_ref``, which the
+  card's fused kernel is held to) bitwise against the gradient written out
+  step by step, on ragged shapes in f32 and bf16;
 * the RG-LRU block atol 1e-5, rtol 1e-4 — the reference's own
   ``test_rglru_block_uses_kernel`` bound (measured 1.4e-9);
 * 3-step ``zero`` losses rtol 1e-5, as ``test_torch_runtime.py``;
@@ -38,12 +41,16 @@ from repro_torch.configs import get_config
 from repro_torch.dist import collectives as coll
 from repro_torch.interop import params_from_numpy, zero_state_from_numpy
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.rglru_scan import ops
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan import ops, scan_backward
+from repro_torch.kernels.rglru_scan.ref import (rglru_scan_backward_ref,
+                                                rglru_scan_ref)
 from repro_torch.models import model, ssm
 from repro_torch.runtime import RuntimeConfig, ScheduleConfig, build_runtime
 
 SCAN_SHAPES = [(2, 256, 128), (1, 200, 100), (3, 128, 384), (1, 1024, 256)]
+# ragged: T = 1, W = 5, W = 33, W and T under one warp or one ring stage
+BACKWARD_SHAPES = [(2, 33, 7), (1, 1, 5), (3, 17, 33), (1, 200, 100),
+                   (2, 1, 1), (1, 70, 64)]
 DTYPES = [(torch.float32, jnp.float32, 2e-6),
           (torch.bfloat16, jnp.bfloat16, 3e-2)]
 LOSS_RTOL = 1e-5
@@ -57,6 +64,10 @@ def _scan_inputs(b, t, w, seed=0):
     a = rng.uniform(0.8, 0.999, (b, t, w)).astype(np.float32)
     x = (rng.standard_normal((b, t, w)) * 0.1).astype(np.float32)
     return a, x
+
+
+def _bits(x):
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
 
 
 def _np(x):
@@ -84,8 +95,10 @@ class TestScan:
                      jax_scan_ref(ja, jx)):
             np.testing.assert_allclose(_np(got), _np(want), atol=tol)
 
-    def test_gradients_vs_reference_custom_vjp(self):
-        a, x = _scan_inputs(1, 128, 128, seed=1)
+    @pytest.mark.parametrize("b,t,w,seed", [(1, 128, 128, 1), (1, 64, 33, 2),
+                                            (2, 40, 5, 3), (1, 1, 7, 4)])
+    def test_gradients_vs_reference_custom_vjp(self, b, t, w, seed):
+        a, x = _scan_inputs(b, t, w, seed=seed)
         a = np.clip(a, 0.8, 0.99)
         ta, tx = (torch.from_numpy(v).requires_grad_() for v in (a, x))
         (ops.rglru_scan(ta, tx) ** 2).sum().backward()
@@ -95,23 +108,48 @@ class TestScan:
             np.testing.assert_allclose(got.numpy(), np.asarray(w),
                                        rtol=1e-4, atol=1e-5)
 
-    def test_backward_is_the_reverse_scan_of_the_shifted_a(self):
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    @pytest.mark.parametrize("b,t,w", BACKWARD_SHAPES)
+    def test_backward_is_the_reverse_scan_of_the_shifted_a(self, b, t, w,
+                                                           dtype):
         """The gradient bitwise equal to its definition written out: dh by
-        the reverse recurrence over a_{t+1}, da = dh·h_{t-1}, dx = dh."""
-        a, x = (torch.from_numpy(v) for v in _scan_inputs(2, 33, 7, seed=2))
-        g = torch.randn(2, 33, 7, generator=torch.Generator().manual_seed(0))
+        the reverse recurrence over a_{t+1} on an fp32 carry, stored in the
+        input dtype; da = dh·h_{t-1} (h_{-1} = 0), the product of the two
+        stored values rounded once; dx = dh.  The plain backward gives it,
+        and so does autograd through the wrapper, which on the CPU takes
+        the plain backward and launches nothing."""
+        a, x = (torch.from_numpy(v).to(dtype)
+                for v in _scan_inputs(b, t, w, seed=2))
+        g = torch.randn(b, t, w, generator=torch.Generator().manual_seed(0)
+                        ).to(dtype)
         ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
+        before = launch_counts()
         h = ops.rglru_scan(ta, tx)
         h.backward(g)
-        dh = torch.zeros(2, 7)
-        dhs = torch.empty(2, 33, 7)
-        for t in range(32, -1, -1):
-            nxt = a[:, t + 1] if t < 32 else torch.zeros(2, 7)
-            dh = nxt * dh + g[:, t]
-            dhs[:, t] = dh
-        h_prev = torch.cat([torch.zeros(2, 1, 7), h.detach()[:, :-1]], 1)
-        assert torch.equal(tx.grad, dhs)
-        assert torch.equal(ta.grad, dhs * h_prev)
+        assert launch_counts() == before
+        h = h.detach()
+        carry = torch.zeros(b, w)
+        dhs = torch.empty(b, t, w, dtype=dtype)
+        for i in range(t - 1, -1, -1):
+            nxt = a[:, i + 1].float() if i + 1 < t else torch.zeros(b, w)
+            carry = nxt * carry + g[:, i].float()
+            dhs[:, i] = carry.to(dtype)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], 1)
+        for da, dx in (rglru_scan_backward_ref(a, h, g),
+                       (ta.grad, tx.grad)):
+            assert da.dtype == dx.dtype == dtype
+            assert torch.equal(_bits(dx), _bits(dhs))
+            assert torch.equal(_bits(da), _bits(dhs * h_prev))
+
+    def test_backward_of_an_expanded_cotangent(self):
+        """``h.sum().backward()`` hands the backward a stride-0 cotangent."""
+        a, x = (torch.from_numpy(v) for v in _scan_inputs(2, 9, 3, seed=5))
+        ta, tx = a.clone().requires_grad_(), x.clone().requires_grad_()
+        h = ops.rglru_scan(ta, tx)
+        h.sum().backward()
+        da, dx = rglru_scan_backward_ref(a, h.detach(), torch.ones_like(a))
+        assert torch.equal(ta.grad, da) and torch.equal(tx.grad, dx)
 
     @pytest.mark.parametrize("reverse", [False, True])
     def test_plain_loop_definition(self, reverse):
@@ -143,6 +181,19 @@ class TestScan:
         ops.scan(z, z, reverse=True)
         assert launch_counts() == before
         assert "rglru_scan" in before
+
+    def test_scan_backward_value_errors(self):
+        z = torch.zeros(1, 4, 3)
+        with pytest.raises(ValueError, match="one \\(B, T, W\\) shape"):
+            scan_backward(z, z, torch.zeros(1, 4, 2))
+        with pytest.raises(ValueError, match="one dtype"):
+            scan_backward(z, z, z.bfloat16())
+        with pytest.raises(ValueError, match="one dtype"):
+            scan_backward(z.double(), z.double(), z.double())
+        meta = torch.zeros(1, 4, 3, device="meta")
+        with pytest.raises(ValueError, match="CPU or a CUDA device"):
+            scan_backward(z, meta, z)
+        assert "rglru_scan_bwd" in launch_counts()
 
 
 # ---------------------------------------------------------------------------
