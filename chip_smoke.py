@@ -23,26 +23,38 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    against the plan and the push compression ratio against its formula;
    each path again from the same seed with the round trip composed from
    the plain versions, whose losses must equal the kernel path's bitwise;
-5. ``hybrid``: 3 ZeRO steps of full-width recurrentgemma-2b (18 RG-LRU
+5. ``dynamic``: the run-time loop at the main path's full width.  First
+   pack / unpack bitwise at the bucket shapes the re-plan brings; then the
+   ``dynamic`` runtime under ``dynamic.json``'s 10 → 1 Gbps shift (a
+   re-plan every 2 steps, 4 steps: the plan swaps from 5 / 2 to 10 / 3
+   buckets at step 2), plans, events, collective counts and launches
+   asserted against the port's own ``core``, losses bitwise phase
+   ``main``'s, and the same with async planning; the measured-cost run
+   (fc / bc by CUDA events at epochs 0 and 1) beside a traced step; and
+   ``dynamic-ps`` on ``dynamic_ps.json``'s topology, plain (the push plan
+   re-segments) and with int8 pushes (it does not);
+6. ``hybrid``: 10 ZeRO steps of full-width recurrentgemma-2b (18 RG-LRU
    blocks through the ``rglru_scan`` kernel and its fused backward
    ``rglru_scan_bwd``, 8 local-attention blocks
    through flash attention at head dim 256), launches asserted against the
-   plan and the layer kinds; then the same steps with the scan replaced by
+   plan and the layer kinds; then 3 steps with the scan replaced by
    its plain loop (autograd through it), whose losses must equal bitwise;
-6. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
-   smoke configs through the launcher (``ps.json`` plain, int8 and top-k);
-   zero against local to fp32 tolerance, zero bitwise across the four
-   scheduling strategies, and plain ps bitwise equal to zero; then
-   ``ps.json`` plain, int8 and top-k, and a reduced recurrentgemma-2b
-   ``zero`` run, on the card against the port on the CPU from one initial
-   state, to a stated tolerance.
+7. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
+   / ``dynamic.json`` / ``dynamic_ps.json`` smoke configs through the
+   launcher (``ps.json`` plain, int8 and top-k); zero against local to
+   fp32 tolerance, zero bitwise across the four scheduling strategies,
+   and plain ps bitwise equal to zero; then ``ps.json`` plain, int8 and
+   top-k, ``dynamic.json``, ``dynamic_ps.json`` and a reduced
+   recurrentgemma-2b ``zero`` run, on the card against the port on the
+   CPU from one initial state, to a stated tolerance.
 
 The last lines are ``nvidia-smi``'s line, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
 
     python3 chip_smoke.py                   # everything, as a check
-    python3 chip_smoke.py --profile         # also trace one step per path
+    python3 chip_smoke.py --profile         # also trace one step per path,
+                                            # its launches against the counters
 """
 
 from __future__ import annotations
@@ -75,6 +87,14 @@ MAIN = dict(runtime="zero", arch="granite-3-2b", reduced=False, batch=2,
             seq=1024, optimizer="adamw")
 PS = dict(MAIN, runtime="ps")              # + ps.json's topology (default)
 HYBRID = dict(MAIN, arch="recurrentgemma-2b")
+HYBRID_STEPS = 10         # past the loss's rise at step 3 (ROADMAP queue 3)
+DYNAMIC_STEPS = 4         # a re-plan every 2 steps: the swap at step 2
+# the plans the 10 -> 1 Gbps shift gives at full width (pull, push bucket
+# sizes), computed host-only with the reference's core
+DYNAMIC_PLANS = (((2, 8, 29, 1, 2), (40, 2)),
+                 ((2, 8, 3, 2, 3, 6, 2, 1, 14, 1), (38, 2, 2)))
+DYNAMIC_PS_PUSH = ((40, 2), (38, 2, 2))   # dynamic_ps.json, plain pushes
+MEMORY_SLACK = 1 << 30    # a dynamic run's peak over the main path's
 HYBRID_SMOKE_SEQ = 80           # past the reduced window of 64
 HYBRID_CARD_CPU_RTOL = 2e-6    # ps.json's bound; 7.8e-8 measured on an H100
 TOPK_FRACTION = 0.01
@@ -134,6 +154,14 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
 PORT_KERNELS = ("copy_chunks_kernel", "flash_fwd_kernel",    # csrc/*.cu
                 "quantize_pack_kernel", "dequantize_unpack_kernel",
                 "sparsify_kernel", "densify_kernel", "rglru_scan_kernel")
+TRACE_SYMBOLS = {           # a kernel's name in a trace -> its counters
+    "copy_chunks_kernel": ("bucket_pack", "bucket_unpack"),
+    "flash_fwd_kernel": ("flash_attention_fwd",),
+    "quantize_pack_kernel": ("compress_quantize",),
+    "dequantize_unpack_kernel": ("compress_dequantize",),
+    "sparsify_kernel": ("compress_sparsify",),
+    "densify_kernel": ("compress_densify",),
+    "rglru_scan_kernel": ("rglru_scan", "rglru_scan_bwd")}
 SECTOR_BYTES = 32        # the least a random 4-byte gather moves from DRAM
 L2_FLUSH_BYTES = 128 << 20               # > the H100's 50 MB of L2
 HOST_AHEAD_CYCLES = 20_000_000           # ~10 ms of SM clock at 1.98 GHz
@@ -852,12 +880,7 @@ def phase_main(profile: bool) -> dict:
                 f"buckets {[len(b) for b in plan.backward]}")
 
     reset_launch_counts()
-    losses, secs = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        losses.extend(rt.fit(1))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+    losses, secs = timed_steps(rt, STEPS)
     counts = launch_counts()
 
     expect = expected_launches(plan, arch, ())
@@ -873,15 +896,16 @@ def phase_main(profile: bool) -> dict:
                 f"{tokens / steady:.1f} tokens/s; peak memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say("main", f"launches over {STEPS} steps {counts} == plan")
+    peak = torch.cuda.max_memory_allocated()
     if profile:
         profile_step(rt, steady)
     del rt
     free_cuda()
-    return counts
+    return dict(counts=counts, losses=losses, peak=peak)
 
 
-def expected_launches(plan, arch, compress) -> dict:
-    """Kernel launches over STEPS steps of a plan: one pack per bucket,
+def expected_launches(plan, arch, compress, steps: int = STEPS) -> dict:
+    """Kernel launches over ``steps`` steps of a plan: one pack per bucket,
     one unpack per pull bucket, the flash forward twice per attention
     block (forward and recompute), the RG-LRU scan twice per RG-LRU block
     (forward and recompute) and its fused backward once, and one launch of
@@ -896,7 +920,17 @@ def expected_launches(plan, arch, compress) -> dict:
     layers = sum(len(b) for b in plan.backward)
     for name in PS_SCHEMES[0][1] + PS_SCHEMES[1][1]:
         per_step[name] = layers if name in compress else 0
-    return {name: STEPS * n for name, n in per_step.items()}
+    return {name: steps * n for name, n in per_step.items()}
+
+
+def launches_of_plans(plans, arch, compress=()) -> dict:
+    """``expected_launches`` summed over ``(plan, steps)`` pairs: a run
+    whose plan changes mid-way."""
+    total: dict = {}
+    for plan, steps in plans:
+        for name, n in expected_launches(plan, arch, compress, steps).items():
+            total[name] = total.get(name, 0) + n
+    return total
 
 
 def reference_push_ratio(specs, plan, scheme: str) -> float:
@@ -954,13 +988,14 @@ def plain_compressor(scheme: str):
     return PlainTopK(error_feedback=True, fraction=TOPK_FRACTION)
 
 
-def phase_ps(profile: bool) -> dict:
-    """3 steps each of the int8 and the top-k push at full width."""
+def phase_ps(profile: bool) -> tuple:
+    """3 steps each of the int8 and the top-k push at full width: the
+    launches and the losses of each scheme."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.runtime import (CompressionConfig, RuntimeConfig,
                                      build_runtime)
     card = torch.cuda.get_device_properties(0).total_memory
-    counts_by_scheme = {}
+    counts_by_scheme, losses_by_scheme = {}, {}
     for scheme, names in PS_SCHEMES:
         config = RuntimeConfig(**PS, compression=CompressionConfig(
             scheme, topk_fraction=TOPK_FRACTION if scheme == "topk"
@@ -978,12 +1013,7 @@ def phase_ps(profile: bool) -> dict:
                   f"push buckets {[len(b) for b in plan.backward]}; built in "
                   f"{time.perf_counter() - t0:.1f} s")
         reset_launch_counts()
-        losses, secs = [], []
-        for _ in range(STEPS):
-            t0 = time.perf_counter()
-            losses.extend(rt.fit(1))
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
+        losses, secs = timed_steps(rt, STEPS)
         counts = launch_counts()
         expect = expected_launches(plan, arch, names)
         if counts != expect:
@@ -1009,6 +1039,7 @@ def phase_ps(profile: bool) -> dict:
                   f"ratio {ratio:.4f}x == formula")
         say("ps", f"{scheme}: launches over {STEPS} steps {counts} == plan")
         counts_by_scheme[scheme] = counts
+        losses_by_scheme[scheme] = losses
         if profile:
             profile_step(rt, steady, f"profile ps/{scheme}")
         del rt
@@ -1028,12 +1059,300 @@ def phase_ps(profile: bool) -> dict:
                                  f"relative gap {gap:.3g})")
         say("ps", f"{scheme}: the plain round trip (ref.py, out of place) "
                   f"gives the same {STEPS} losses bitwise")
-    return counts_by_scheme
+    return counts_by_scheme, losses_by_scheme
+
+
+def timed_steps(rt, steps: int) -> tuple:
+    """``steps`` losses and the host seconds of each step, the card
+    synchronised at its end."""
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.extend(rt.fit(1))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def sizes(plan) -> tuple:
+    return (tuple(len(b) for b in plan.forward),
+            tuple(len(b) for b in plan.backward))
+
+
+def check_replan_buckets(plan, specs) -> None:
+    """bucket_pack / bucket_unpack bitwise against their plain versions at
+    the re-plan's bucket shapes (the first bucket of each size of
+    ``plan``), as the step calls them: a pull packs one shard a layer and
+    unpacks the gathered row, a push packs one piece a leaf and the
+    padding's zero run."""
+    from repro_torch.kernels.bucket_pack import ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pulls, pushes = {}, {}
+    for buckets, side in ((plan.forward, pulls), (plan.backward, pushes)):
+        for b in buckets:
+            side.setdefault(len(b), b)
+    for n, bucket in sorted(pulls.items()):
+        shards = [torch.randn(specs[l].shard_size, generator=gen, device=dev)
+                  for l in bucket]
+        widths = [specs[l].shard_size for l in bucket]
+        packed = ops.pack_ragged(shards)
+        assert_bitwise(packed, ref.pack_ragged_ref(
+            shards, dtype=torch.float32, device=dev),
+            f"bucket_pack at a {n}-layer pull bucket")
+        del shards
+        for a, b in zip(ops.unpack_columns(packed, widths, 1),
+                        ref.unpack_columns_ref(packed, widths, 1)):
+            assert_bitwise(a, b, f"bucket_unpack at a {n}-layer pull bucket")
+        del packed
+        free_cuda()
+    for n, bucket in sorted(pushes.items()):
+        pieces = []
+        for l in bucket:
+            pieces += [torch.randn(k, generator=gen, device=dev)
+                       for k in specs[l].sizes]
+            if specs[l].padded > specs[l].total:
+                pieces.append(specs[l].padded - specs[l].total)
+        assert_bitwise(ops.pack_ragged(pieces), ref.pack_ragged_ref(
+            pieces, dtype=torch.float32, device=dev),
+            f"bucket_pack at a {n}-layer push bucket")
+        del pieces
+        free_cuda()
+    say("dynamic", f"bucket_pack / bucket_unpack bitwise at the re-plan's "
+                   f"pull buckets of {sorted(pulls)} layers and push buckets "
+                   f"of {sorted(pushes)} layers")
+
+
+def dynamic_config(runtime: str, **changes):
+    """The main path's width under ``dynamic.json``'s network (runtime
+    ``dynamic``) or ``dynamic_ps.json``'s topology (``dynamic-ps``), a
+    re-plan every 2 steps."""
+    from repro_torch.runtime import RuntimeConfig
+    cfgs = ROOT / "examples" / "runtime_configs"
+    name = "dynamic.json" if runtime == "dynamic" else "dynamic_ps.json"
+    smoke = RuntimeConfig.load(str(cfgs / name))
+    config = RuntimeConfig(**dict(MAIN, runtime=runtime),
+                           schedule=smoke.schedule, measure=smoke.measure)
+    for field, kw in changes.items():
+        config = dataclasses.replace(config, **{field: dataclasses.replace(
+            getattr(config, field), **kw)})
+    return config
+
+
+def steady_of(secs) -> float:
+    """Mean seconds of the steps that are no plan's first (1 and 3)."""
+    return (secs[1] + secs[3]) / 2
+
+
+def phase_dynamic(main: dict, ps_losses: dict) -> dict:
+    """The run-time loop at full width: the analytic ``dynamic`` run (and
+    with async planning), the measured-cost run, and ``dynamic-ps`` plain
+    and with int8 pushes."""
+    from repro_torch.core import (Planner, costs_from_profiles,
+                                  plan_from_decision)
+    from repro_torch.core.buckets import flat_layer_order
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.profiles import layer_profiles
+    from repro_torch.runtime import build_runtime
+    from repro_torch.configs.base import InputShape
+    config = dynamic_config("dynamic")
+    net = config.schedule.network.build()
+    free_cuda()
+    arch, _, specs = main_plan_specs()
+
+    # the plans, from the port's own core through the planner path
+    profiles = layer_profiles(arch, InputShape("runtime", MAIN["seq"],
+                                               MAIN["batch"], "train"))
+    planner = Planner()
+    want = [plan_from_decision(*planner.decide(costs_from_profiles(
+        profiles, net=net.model_at(e),
+        compute_flops_per_s=config.measure.compute_flops_per_s),
+        "dynacomm"), arch.num_layers + 2) for e in (0, 1)]
+    if tuple(sizes(p) for p in want) != DYNAMIC_PLANS:
+        raise AssertionError(f"the port's core plans {[sizes(p) for p in want]}"
+                             f" != {DYNAMIC_PLANS}")
+    check_replan_buckets(want[1], specs)
+
+    # -- dynamic, analytic costs: the swap at step 2 ----------------------
+    runs = {}
+    for async_planning in (False, True):
+        cfg = dynamic_config("dynamic", schedule=dict(
+            async_planning=async_planning))
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        rt = build_runtime(cfg)
+        reset_launch_counts()
+        losses, secs = timed_steps(rt, DYNAMIC_STEPS)
+        counts = launch_counts()
+        tr = rt.trainer
+        runs[async_planning] = dict(
+            losses=losses, secs=secs, counts=counts,
+            peak=torch.cuda.max_memory_allocated(),
+            events=[(e.step, e.plan_changed, e.retraced, e.plan,
+                     e.scheduling_seconds, e.overhead_hidden)
+                    for e in tr.events],
+            collectives=[tr.collective_counts(p) for p in tr.plans_seen],
+            stats=tr.planner_stats, windows=[
+                costs_from_profiles(profiles, net=net.model_at(e),
+                                    compute_flops_per_s=cfg.measure
+                                    .compute_flops_per_s).idle_window
+                for e in (0, 1)])
+        if async_planning:
+            tr.planner.close()
+        del rt, tr
+        free_cuda()
+    run = runs[False]
+    got = [(step, changed, retraced, plan)
+           for step, changed, retraced, plan, _, _ in run["events"]]
+    if got != [(0, False, True, want[0]), (2, True, True, want[1])]:
+        raise AssertionError(f"dynamic events {got}")
+    if run["collectives"] != [(len(p.forward), len(p.backward))
+                              for p in want]:
+        raise AssertionError(f"collective counts {run['collectives']}")
+    expect = launches_of_plans(((want[0], 2), (want[1], 2)), arch)
+    if run["counts"] != expect:
+        raise AssertionError(f"dynamic launches {run['counts']} != {expect}")
+    if run["losses"][:STEPS] != main["losses"]:
+        raise AssertionError(f"dynamic losses {run['losses']} != main's "
+                             f"{main['losses']}")
+    if run["peak"] > main["peak"] + MEMORY_SLACK:
+        raise AssertionError(f"dynamic peak {run['peak']} over main's "
+                             f"{main['peak']} + 1 GiB")
+    other = runs[True]
+    if other["losses"] != run["losses"] or \
+            [e[:4] for e in other["events"]] != [e[:4] for e in run["events"]]:
+        raise AssertionError(f"async planning changed the run: "
+                             f"{other['losses']} vs {run['losses']}")
+    secs = run["secs"]
+    say("dynamic", f"analytic costs, 10 -> 1 Gbps at epoch 1: plans "
+                   f"{[sizes(p) for p in want]}; events (step, changed, "
+                   f"first use) {[e[:3] for e in run['events']]}; "
+                   f"collectives {run['collectives']} == buckets")
+    say("dynamic", f"losses {run['losses']}, the first {STEPS} bitwise "
+                   f"main's; launches {run['counts']} == plan sequence")
+    say("dynamic", f"step ms {[round(x * 1e3, 1) for x in secs]}: plan 1 "
+                   f"steady {secs[1] * 1e3:.1f}, the swap step (plan 2's "
+                   f"first) {secs[2] * 1e3:.1f}, plan 2 steady "
+                   f"{secs[3] * 1e3:.1f}; peak {run['peak'] / 2**30:.2f} "
+                   f"GiB (main {main['peak'] / 2**30:.2f})")
+    for e, window in zip(run["events"], run["windows"]):
+        say("dynamic", f"re-plan at step {e[0]}: {e[4] * 1e3:.3f} ms against "
+                       f"the dt + gt1 window {window * 1e3:.1f} ms "
+                       f"(hidden={e[5]})")
+    say("dynamic", f"async planning (the run after the sync one): same "
+                   f"losses and events bitwise; steady ms/step (steps 2 and "
+                   f"4) async {steady_of(other['secs']) * 1e3:.1f} against "
+                   f"sync {steady_of(secs) * 1e3:.1f}; async re-plans "
+                   f"{[round(e[4] * 1e3, 3) for e in other['events']]} ms; "
+                   f"planner {other['stats']}")
+
+    # -- dynamic, measured costs: epochs 0 and 1 -------------------------
+    cfg = dynamic_config("dynamic", schedule=dict(reschedule_every=1),
+                         measure=dict(cost_source="measured",
+                                      measure_iters=3, measure_warmup=1))
+    rt = build_runtime(cfg)
+    tr = rt.trainer
+    walls = []
+    measure = tr.measure_costs
+
+    def timed_measure(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = measure(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+    tr.measure_costs = timed_measure
+    losses, costs = [], []
+    for _ in range(2):
+        losses.extend(rt.fit(1))
+        costs.append(tr._costs)
+    if losses != main["losses"][:2]:
+        raise AssertionError(f"measured-cost losses {losses} != main's "
+                             f"{main['losses'][:2]}")
+    L = arch.num_layers + 2
+    for e, c in zip(tr.events, costs):
+        if not all(math.isfinite(x) and x > 0 for x in (*c.fc, *c.bc)):
+            raise AssertionError(f"measured costs not finite positive: {c}")
+        fresh = plan_from_decision(*Planner().decide(c, "dynacomm"), L)
+        if e.plan != fresh or flat_layer_order(e.plan.forward) != \
+                tuple(range(L)):
+            raise AssertionError(f"epoch {e.epoch}: plan {sizes(e.plan)} != "
+                                 f"the DP's {sizes(fresh)} on its costs")
+    state, batch = rt._state, rt._batch_fn(2)
+    busy_rows = traced(lambda: tr._step_fn(state, batch))
+    busy = sum(r.self_device_time_total for r in busy_rows) / 1e3
+    say("dynamic", f"measured costs (CUDA events, {cfg.measure.measure_iters}"
+                   f" calls after {cfg.measure.measure_warmup} warm-up a "
+                   f"layer and phase), wall {[round(w, 2) for w in walls]} s")
+    for e, c in zip(tr.events, costs):
+        fc, bc = c.fc * 1e3, c.bc * 1e3
+        say("dynamic", f"epoch {e.epoch}: sum fc {fc.sum():.2f} ms (embed "
+                       f"{fc[0]:.3f}, {L - 2} blocks {fc[1:-1].sum():.2f}, "
+                       f"final {fc[-1]:.3f}), sum bc {bc.sum():.2f} ms (embed "
+                       f"{bc[0]:.3f}, blocks {bc[1:-1].sum():.2f}, final "
+                       f"{bc[-1]:.3f}); sum fc+bc {fc.sum() + bc.sum():.1f} "
+                       f"ms; plan {sizes(e.plan)}; re-plan "
+                       f"{e.scheduling_seconds * 1e3:.3f} ms against the "
+                       f"dt + gt1 window {c.idle_window * 1e3:.1f} ms "
+                       f"(hidden={e.overhead_hidden})")
+    say("dynamic", f"a traced step of the active plan: device busy "
+                   f"{busy:.1f} ms; losses {losses} bitwise main's")
+    del rt, tr, state, batch
+    free_cuda()
+
+    # -- dynamic-ps, plain and int8 pushes --------------------------------
+    ps_counts = {}
+    for scheme in ("none", "int8"):
+        cfg = dynamic_config("dynamic-ps", compression=dict(scheme=scheme))
+        torch.cuda.reset_peak_memory_stats()
+        rt = build_runtime(cfg)
+        reset_launch_counts()
+        losses, secs = timed_steps(rt, DYNAMIC_STEPS)
+        counts = launch_counts()
+        tr = rt.trainer
+        plans = [e.plan for e in tr.events]
+        compress = PS_SCHEMES[0][1] if scheme == "int8" else ()
+        expect = launches_of_plans(((plans[0], 2), (plans[1], 2)), arch,
+                                   compress)
+        if counts != expect:
+            raise AssertionError(f"dynamic-ps/{scheme} launches {counts} != "
+                                 f"{expect}")
+        pushes = tuple(sizes(p)[1] for p in plans)
+        want_push = DYNAMIC_PS_PUSH if scheme == "none" else \
+            (DYNAMIC_PS_PUSH[0],) * 2
+        if pushes != want_push or sizes(plans[0])[0] != DYNAMIC_PLANS[0][0] \
+                or sizes(plans[1])[0] != DYNAMIC_PLANS[0][0]:
+            raise AssertionError(f"dynamic-ps/{scheme} plans "
+                                 f"{[sizes(p) for p in plans]}")
+        witness = main["losses"] if scheme == "none" else ps_losses["int8"]
+        if losses[:STEPS] != witness:
+            raise AssertionError(f"dynamic-ps/{scheme} losses {losses} != "
+                                 f"{witness}")
+        ratio = ""
+        if scheme == "int8":
+            got = rt.ledger["push_compression_ratio"]
+            formula = reference_push_ratio(tr.base.specs, plans[0], "int8")
+            if got != formula:
+                raise AssertionError(f"dynamic-ps/int8 push ratio {got!r} != "
+                                     f"{formula!r}")
+            ratio = f"; push ratio {got:.4f}x == formula"
+        say("dynamic", f"dynamic-ps/{scheme}: push plans {pushes} "
+                       f"({'re-segmented' if tr.events[1].plan_changed else 'unchanged'}"
+                       f" at step 2); losses {losses}, the first {STEPS} "
+                       f"bitwise {'main' if scheme == 'none' else 'ps/int8'}'s; "
+                       f"step ms {[round(x * 1e3, 1) for x in secs]}; peak "
+                       f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                       f"launches {counts} == plan sequence{ratio}")
+        ps_counts[scheme] = counts
+        del rt, tr
+        free_cuda()
+    return dict(counts=run["counts"], ps_counts=ps_counts)
 
 
 def phase_hybrid(profile: bool) -> dict:
-    """3 ZeRO steps of full-width recurrentgemma-2b, then the same steps
-    with the scan replaced by its plain loop."""
+    """HYBRID_STEPS ZeRO steps of full-width recurrentgemma-2b (the loss
+    printed past its rise at step 3), then the first STEPS with the scan
+    replaced by its plain loop."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models import ssm
@@ -1062,14 +1381,9 @@ def phase_hybrid(profile: bool) -> dict:
                   f"{[len(b) for b in plan.forward]}, {len(plan.backward)} "
                   f"push buckets {[len(b) for b in plan.backward]}")
     reset_launch_counts()
-    losses, secs = [], []
-    for _ in range(STEPS):
-        t0 = time.perf_counter()
-        losses.extend(rt.fit(1))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+    losses, secs = timed_steps(rt, HYBRID_STEPS)
     counts = launch_counts()
-    expect = expected_launches(plan, arch, ())
+    expect = expected_launches(plan, arch, (), HYBRID_STEPS)
     if counts != expect:
         raise AssertionError(f"hybrid launches {counts} != expected {expect}")
     if not all(math.isfinite(x) for x in losses):
@@ -1079,12 +1393,16 @@ def phase_hybrid(profile: bool) -> dict:
         raise AssertionError(f"hybrid: peak {peak} >= card {card}")
     steady = sum(secs[1:]) / len(secs[1:])
     tokens = config.batch * config.seq
-    say("hybrid", f"losses {losses}")
+    rises = [i + 1 for i in range(1, len(losses))
+             if losses[i] > losses[i - 1]]
+    say("hybrid", f"losses over {HYBRID_STEPS} steps {losses}; rises at "
+                  f"steps {rises}")
     say("hybrid", f"step seconds {[round(x, 4) for x in secs]}; steady "
-                  f"{steady * 1e3:.1f} ms/step (steps 2-{STEPS}), "
+                  f"{steady * 1e3:.1f} ms/step (steps 2-{HYBRID_STEPS}), "
                   f"{tokens / steady:.1f} tokens/s; peak memory "
                   f"{peak / 2**30:.2f} GiB of {card / 2**30:.2f}")
-    say("hybrid", f"launches over {STEPS} steps {counts} == plan and kinds")
+    say("hybrid", f"launches over {HYBRID_STEPS} steps {counts} == plan and "
+                  f"kinds")
     if profile:
         profile_step(rt, steady, "profile hybrid")
     del rt
@@ -1105,30 +1423,48 @@ def phase_hybrid(profile: bool) -> dict:
     free_cuda()
     if any(ran.values()):
         raise AssertionError(f"the plain run launched the scan kernels {ran}")
-    if plain != losses:
+    if plain != losses[:STEPS]:
         gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
-        raise AssertionError(f"hybrid: kernel path losses {losses} != plain "
-                             f"scan {plain} (largest relative gap "
+        raise AssertionError(f"hybrid: kernel path losses {losses[:STEPS]} "
+                             f"!= plain scan {plain} (largest relative gap "
                              f"{gap:.3g})")
     say("hybrid", f"the plain scan (ref.py, autograd through the loop) gives "
-                  f"the same {STEPS} losses bitwise")
+                  f"the same first {STEPS} losses bitwise")
     return counts
 
 
-def profile_step(rt, steady: float, phase: str = "profile") -> None:
-    """One more step under ``torch.profiler``: device time by kernel (the
-    twelve largest and every kernel of ``csrc/``), and the device's idle
-    share of an untraced steady step."""
+def traced(fn) -> list:
+    """``fn()`` under ``torch.profiler``, the card idle before and after
+    the window so that it holds whole calls: the device rows of
+    ``key_averages()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        rt.fit(1)
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
+        fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
+
+
+def profile_step(rt, steady: float, phase: str = "profile") -> None:
+    """One more step under ``torch.profiler``: device time by kernel (the
+    twelve largest and every kernel of ``csrc/``), the device's idle
+    share of an untraced steady step, and each kernel's launches in the
+    trace against the wrappers' counters over the same step."""
+    from repro_torch.kernels import launch_counts
+    before = launch_counts()
+    rows = traced(lambda: rt.fit(1))
+    after = launch_counts()
     busy = sum(e.self_device_time_total for e in rows) / 1e6
+    for symbol, names in TRACE_SYMBOLS.items():
+        counted = sum(after[n] - before[n] for n in names)
+        seen = sum(e.count for e in rows if symbol in e.key)
+        if counted or seen:
+            say(phase, f"{symbol}: {seen} launches in the trace, {counted} "
+                       f"counted ({'equal' if seen == counted else 'DIFFER'})")
     say(phase, f"device busy {busy * 1e3:.1f} ms per step = "
                f"{100 * busy / steady:.1f}% of the untraced steady "
                f"step ({steady * 1e3:.1f} ms); idle "
@@ -1172,6 +1508,20 @@ def card_against_cpu(config, model=None) -> tuple:
     return gap, card, cpu
 
 
+def zero_like(path) -> list:
+    """STEPS losses of the ``zero`` runtime on a dynamic smoke config's
+    model, data and seed: a plan changes no bit, so they are the dynamic
+    run's."""
+    from repro_torch.runtime import RuntimeConfig, ScheduleConfig, build_runtime
+    cfg = RuntimeConfig.load(str(path))
+    rt = build_runtime(RuntimeConfig(
+        runtime="zero", arch=cfg.arch, reduced=cfg.reduced, batch=cfg.batch,
+        seq=cfg.seq, optimizer=cfg.optimizer, lr=cfg.lr, seed=cfg.seed,
+        aux_weight=cfg.aux_weight,
+        schedule=ScheduleConfig(strategy=cfg.schedule.strategy)))
+    return rt.fit(STEPS)
+
+
 def phase_configs() -> None:
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.train import main as train_main
@@ -1190,6 +1540,9 @@ def phase_configs() -> None:
     hybrid = train_main(["--arch", HYBRID["arch"], "--reduced", "--runtime",
                          "zero", "--steps", str(STEPS), "--seq",
                          str(HYBRID_SMOKE_SEQ), "--log-every", "0"])
+    dynamic = {name: train_main(["--config", str(cfgs / f"{name}.json"),
+                                 "--steps", str(STEPS), "--log-every", "0"])
+               for name in ("dynamic", "dynamic_ps")}
     counts = launch_counts()
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel never ran in the configs: {counts}")
@@ -1211,6 +1564,19 @@ def phase_configs() -> None:
                                  f"{cpu}: rel gap {gap:.3g} > "
                                  f"{CARD_CPU_RTOL}")
         say("configs", f"ps.json/{scheme} from one initial state: card "
+                       f"{card}, CPU {cpu}; rel gap {gap:.3g} (rtol "
+                       f"{CARD_CPU_RTOL})")
+    for name, losses in dynamic.items():
+        if losses != zero_like(cfgs / f"{name}.json"):
+            raise AssertionError(f"{name}.json losses {losses} != the static "
+                                 f"zero run of its first plan")
+        gap, card, cpu = card_against_cpu(RuntimeConfig.load(
+            str(cfgs / f"{name}.json")))
+        if not gap <= CARD_CPU_RTOL:
+            raise AssertionError(f"{name}.json: card {card} vs CPU {cpu}: "
+                                 f"rel gap {gap:.3g} > {CARD_CPU_RTOL}")
+        say("configs", f"{name}.json through the launcher {losses} (bitwise "
+                       f"the static zero run); from one initial state: card "
                        f"{card}, CPU {cpu}; rel gap {gap:.3g} (rtol "
                        f"{CARD_CPU_RTOL})")
     if not all(math.isfinite(x) for x in hybrid):
@@ -1259,21 +1625,33 @@ def main(argv=None) -> None:
                          "ps path and of the hybrid path with torch.profiler")
     args = ap.parse_args(argv)
 
+    start = time.perf_counter()
     smi = phase_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     arch, plan, specs = main_plan_specs()
-    records = phase_kernels(arch, plan, specs)
-    counts = phase_main(args.profile)
-    ps_counts = phase_ps(args.profile)
-    hybrid_counts = phase_hybrid(args.profile)
-    phase_configs()
+    walls = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = round(time.perf_counter() - t0, 1)
+        return out
+    records = timed("kernels", phase_kernels, arch, plan, specs)
+    main_run = timed("main", phase_main, args.profile)
+    counts = main_run["counts"]
+    ps_counts, ps_losses = timed("ps", phase_ps, args.profile)
+    timed("dynamic", phase_dynamic, main_run, ps_losses)
+    hybrid_counts = timed("hybrid", phase_hybrid, args.profile)
+    timed("configs", phase_configs)
+    say("time", f"phase wall seconds {walls}; "
+                f"{time.perf_counter() - start:.1f} s since the start")
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
     # launches: each kernel's count on the path that runs it (the ZeRO
     # step, the int8 push, the top-k push, the hybrid step), read right
-    # after that path
+    # after that path; phase dynamic asserts its own
     for scheme, names in PS_SCHEMES:
         for name in names:
             counts[name] = ps_counts[scheme][name]

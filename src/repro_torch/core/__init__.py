@@ -1,7 +1,7 @@
 """DynaComm core: the paper's contribution (scheduling) as a library.
 
-A copy of the reference package's ``core`` (the planner and the text renderer wait for the
-dynamic slice), so that plans and profiles equal the reference's.
+A copy of the reference package's ``core``, so that plans, profiles and
+planner caches equal the reference's.
 """
 
 from repro_torch.core.costmodel import (LayerCosts, Segment, TopologyCosts,
@@ -15,6 +15,7 @@ from repro_torch.core.bruteforce import bruteforce_backward, bruteforce_forward
 from repro_torch.core.scheduler import (STRATEGIES, Decision, DynaCommScheduler,
                                   TopologyScheduler, consensus_decision,
                                   evaluate, schedule, schedule_topology)
+from repro_torch.core.planner import AsyncPlanner, Planner, PlannerStats, cost_key
 from repro_torch.core.buckets import (BucketPlan, decision_from_plan,
                                 plan_from_decision)
 from repro_torch.core.profiler import (EwmaDriftDetector, LayerProfile,
@@ -40,6 +41,7 @@ __all__ = [
     "bruteforce_forward", "bruteforce_backward",
     "STRATEGIES", "Decision", "DynaCommScheduler", "TopologyScheduler",
     "evaluate", "schedule", "schedule_topology", "consensus_decision",
+    "AsyncPlanner", "Planner", "PlannerStats", "cost_key",
     "BucketPlan", "plan_from_decision", "decision_from_plan",
     "EwmaDriftDetector", "LayerProfile", "LayerTimingHook",
     "costs_from_profiles", "measure_layer_costs", "random_costs",

@@ -77,10 +77,27 @@ def costs_from_profiles(profiles: Sequence[LayerProfile],
 # ---------------------------------------------------------------------------
 
 
+def _cuda_devices(x, out: dict) -> None:
+    """Collect the devices of every CUDA leaf of a tensor / tuple / list /
+    dict structure (the walk ``jax.block_until_ready`` makes of a pytree)."""
+    if isinstance(x, dict):
+        for v in x.values():
+            _cuda_devices(v, out)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _cuda_devices(v, out)
+    elif getattr(x, "is_cuda", False) is True:
+        out[str(x.device)] = x.device
+
+
 def _block(x):
-    import torch
-    if isinstance(x, torch.Tensor) and x.is_cuda:
-        torch.cuda.synchronize(x.device)
+    """Wait for every CUDA device that holds a leaf of ``x``."""
+    devices: dict = {}
+    _cuda_devices(x, devices)
+    if devices:
+        import torch
+        for device in devices.values():
+            torch.cuda.synchronize(device)
     return x
 
 

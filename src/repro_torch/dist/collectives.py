@@ -33,6 +33,16 @@ from repro_torch.kernels.bucket_pack.ops import pack_ragged, unpack_columns
 
 FLAT_DTYPE = torch.float32
 
+# The bucket collectives launched so far, counted where they launch (the
+# port has no HLO to count them in): the plan-step cache reads them around
+# a plan's first step.
+LAUNCHES: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0}
+
+
+def collective_counts() -> Tuple[int, int]:
+    """(#all-gathers, #reduce-scatters) launched so far in this process."""
+    return LAUNCHES["all_gather"], LAUNCHES["reduce_scatter"]
+
 
 @dataclasses.dataclass(frozen=True)
 class FlatSpec:
@@ -160,6 +170,7 @@ def gather_bucket(shards: Sequence[torch.Tensor], specs: Sequence[FlatSpec],
     gathered = torch.empty(axis * operand.numel(), dtype=operand.dtype,
                            device=operand.device)
     dist.all_gather_into_tensor(gathered, operand, group=group)
+    LAUNCHES["all_gather"] += 1
     del operand
     fulls = unpack_columns(gathered, [specs[l].shard_size for l in bucket],
                            axis)
@@ -220,6 +231,7 @@ def _scatter_sum(pieces: List[Union[torch.Tensor, int]],
                       device=operand.device)
     dist.reduce_scatter_tensor(out, operand, op=dist.ReduceOp.SUM,
                                group=group)
+    LAUNCHES["reduce_scatter"] += 1
     result: Dict[int, torch.Tensor] = {}
     off = 0
     for l in bucket:

@@ -1,8 +1,9 @@
 """Training launcher of the port: a thin client of ``build_runtime``.
 
 ``--config runtime.json`` builds the runtime from a checked-in
-:class:`RuntimeConfig` (``examples/runtime_configs/{local,zero,ps}.json``);
-otherwise the flags below map onto one (``--dump-config`` prints it).  With
+:class:`RuntimeConfig` (``examples/runtime_configs/{local,zero,ps,dynamic,
+dynamic_ps}.json``); otherwise the flags below map onto one, as the
+reference's launcher maps them (``--dump-config`` prints it).  With
 ``--config``, ``--compress`` (and ``--topk-fraction`` /
 ``--no-error-feedback`` with it) replaces the config's compression block,
 so one checked-in PS config runs plain, int8 or top-k.  The run goes to the
@@ -16,6 +17,14 @@ Examples::
         --config examples/runtime_configs/ps.json --compress int8 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --reduced --runtime zero --strategy lbl --steps 10 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+        --reduced --runtime dynamic --steps 6 --steps-per-epoch 2 \
+        --batch 4 --seq 32 --bw-gbps 10 --bw-shift-gbps 1 --device cpu
+
+The dynamic runtimes re-plan every ``--steps-per-epoch`` steps and print
+one line per scheduling pass (``re-segmented`` / ``unchanged``, the
+plan's collective counts, the DP's wall time against the Δt + gt¹ idle
+window).
 """
 
 from __future__ import annotations
@@ -40,22 +49,61 @@ def _compression(args) -> CompressionConfig:
 
 
 def config_from_flags(args) -> RuntimeConfig:
-    """The argparse → RuntimeConfig mapping of the ported runtimes."""
+    """The argparse → RuntimeConfig mapping of the ported runtimes (the
+    reference launcher's, so equal flags give an equal config)."""
+    name = args.runtime
     network = topology = None
-    if args.runtime == "zero":
-        network = NetworkConfig(bandwidth_gbps=args.bw_gbps)
-    elif args.runtime == "ps":
+    if name in ("zero", "dynamic"):
+        # pass the shift through even for 'zero': RuntimeConfig owns the
+        # "a drift needs the run-time loop" diagnostic
+        network = NetworkConfig(bandwidth_gbps=args.bw_gbps,
+                                shift_gbps=args.bw_shift_gbps,
+                                shift_epoch=args.shift_epoch)
+    elif name != "local":
+        up_shift = None
+        if args.up_shift_gbps is not None:
+            if args.up_shift_gbps <= 0:
+                raise SystemExit(f"--up-shift-gbps must be positive, got "
+                                 f"{args.up_shift_gbps}")
+            up_shift = args.up_gbps / args.up_shift_gbps
         topology = TopologyConfig(
             servers=args.ps_servers, down_gbps=args.down_gbps,
-            up_gbps=args.up_gbps, worker_flops=args.worker_flops)
+            up_gbps=args.up_gbps, worker_flops=args.worker_flops,
+            up_shift_factor=up_shift, shift_epoch=args.shift_epoch)
     return RuntimeConfig(
-        runtime=args.runtime, arch=args.arch, reduced=args.reduced,
+        runtime=name, arch=args.arch, reduced=args.reduced,
         batch=args.batch, seq=args.seq, optimizer=args.optimizer, lr=args.lr,
-        schedule=ScheduleConfig(strategy=args.strategy, network=network,
-                                topology=topology),
+        schedule=ScheduleConfig(
+            strategy=args.strategy, reschedule_every=args.steps_per_epoch,
+            drift_detect=args.drift_detect,
+            async_planning=args.async_planning,
+            plan_cache_size=args.plan_cache_size,
+            network=network, topology=topology),
         execution=ExecutionConfig(zero3=args.zero3),
-        measure=MeasureConfig(compute_flops_per_s=args.worker_flops),
+        measure=MeasureConfig(cost_source=args.cost_source,
+                              compute_flops_per_s=args.worker_flops),
         compression=_compression(args))
+
+
+def print_events(rt) -> None:
+    """One line per scheduling pass of a dynamic runtime, then its step
+    cache's first uses and hits."""
+    tr = getattr(rt, "trainer", None)
+    if not hasattr(tr, "traces"):
+        return
+    for e in rt.events:
+        if not hasattr(e, "plan"):               # an EvalEvent
+            continue
+        ag, rs = tr.collective_counts(e.plan)
+        print(f"epoch {e.epoch:3d} step {e.step:4d}: "
+              f"{len(e.plan.forward)} pull / {len(e.plan.backward)} "
+              f"push segments (collectives {ag} ag / {rs} rs)  "
+              f"{'re-segmented' if e.plan_changed else 'unchanged'}"
+              f"{' [cache hit]' if e.plan_changed and not e.retraced else ''}"
+              f"  sched {e.scheduling_seconds * 1e3:.2f} ms "
+              f"hidden={e.overhead_hidden}")
+    print(f"[{rt.config.runtime}] traces {tr.traces}, cache hits "
+          f"{tr.cache_hits}")
 
 
 def main(argv=None):
@@ -74,12 +122,33 @@ def main(argv=None):
                     default="granite-3-2b")
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant")
-    ap.add_argument("--runtime", choices=("local", "zero", "ps"),
+    ap.add_argument("--runtime",
+                    choices=("local", "zero", "dynamic", "ps", "dynamic-ps"),
                     default="local")
     ap.add_argument("--strategy", default="dynacomm",
                     choices=("sequential", "lbl", "ibatch", "dynacomm"))
+    ap.add_argument("--steps-per-epoch", type=int, default=20,
+                    help="re-scheduling interval of the dynamic runtimes")
     ap.add_argument("--bw-gbps", type=float, default=10.0,
                     help="edge uplink bandwidth (Gbit/s) the plan prices")
+    ap.add_argument("--bw-shift-gbps", type=float, default=None,
+                    help="dynamic: drift the uplink to this bandwidth at "
+                         "--shift-epoch")
+    ap.add_argument("--shift-epoch", type=int, default=1)
+    ap.add_argument("--async-planning", action="store_true",
+                    help="dynamic runtimes: pre-plan epoch e+1's decision "
+                         "during epoch e (the paper's gt¹ idle window); "
+                         "decisions and losses stay bitwise the same")
+    ap.add_argument("--plan-cache-size", type=int, default=256,
+                    help="memoized (strategy, costs) -> decision entries "
+                         "kept by the planner (LRU)")
+    ap.add_argument("--cost-source", choices=("analytic", "measured"),
+                    default="analytic",
+                    help="dynamic runtimes: fc/bc from the analytic "
+                         "profiles or measured on the device")
+    ap.add_argument("--drift-detect", action="store_true",
+                    help="dynamic: also re-schedule when observed step "
+                         "times drift (EWMA detector)")
     ap.add_argument("--worker-flops", type=float, default=1e10,
                     help="edge-worker compute rate fed to the profiler")
     ap.add_argument("--zero3", action="store_true",
@@ -91,6 +160,9 @@ def main(argv=None):
                     help="ps: server→worker (pull) bandwidth per link")
     ap.add_argument("--up-gbps", type=float, default=1.0,
                     help="ps: worker→server (push) bandwidth per link")
+    ap.add_argument("--up-shift-gbps", type=float, default=None,
+                    help="dynamic-ps: degrade every uplink to this "
+                         "bandwidth at --shift-epoch")
     ap.add_argument("--compress", choices=("none", "int8", "topk"),
                     default=None,
                     help="ps: compress gradient pushes (int8 per-tile "
@@ -150,6 +222,7 @@ def main(argv=None):
             print(f"step {len(losses):4d}  loss {losses[-1]:.4f}  "
                   f"{dt:.3f}s/step")
 
+    print_events(rt)
     led = rt.ledger
     print(f"[{config.runtime}] {len(losses)} steps, final loss "
           f"{losses[-1]:.4f}; transfers: "

@@ -7,9 +7,14 @@ presents the uniform protocol surface (``fit`` / ``step`` / ``events`` /
 underlying trainer stays reachable as ``.trainer``.
 
 The port so far has ``local`` (whole-model autograd, no collectives),
-``zero`` (the DynaComm-bucketed ZeRO step) and ``ps`` (the synchronous
+``zero`` (the DynaComm-bucketed ZeRO step), ``ps`` (the synchronous
 parameter-server step: the ZeRO step under a topology's consensus plan,
-optionally with compressed pushes).  Checkpoints written by
+optionally with compressed pushes), and their run-time re-planning loops
+``dynamic`` and ``dynamic-ps`` (re-plan per epoch, swap the plan's step
+live; each step is accounted against the plan active in it).  The dynamic
+runtimes draw their initial state from the same seeded generator as
+``zero``, so a dynamic run starts from the static run's state.
+Checkpoints written by
 ``save_state`` embed the serialized :class:`RuntimeConfig`, so a restore
 from a mismatched runtime fails loudly instead of misreading buffers.
 """
@@ -239,16 +244,22 @@ class _CompiledRuntime(RuntimeAdapter):
             if led["push_wire_bytes"] else 1.0)
         return led
 
+    @property
+    def _layout(self):
+        """The trainer that owns the state layout (a dynamic trainer's
+        ``base``, else the trainer itself)."""
+        return getattr(self.trainer, "base", self.trainer)
+
     def save_state(self, path: str) -> None:
         """Rank 0 writes the whole (unsharded) state."""
-        whole = self.trainer.global_state(self._state)
-        if self.trainer.rank == 0:
+        whole = self._layout.global_state(self._state)
+        if self._layout.rank == 0:
             self._save_tree(path, {"model": whole})
 
     def restore_state(self, path: str) -> None:
         t = self._load_tree(
-            path, {"model": self.trainer.global_state(self._state)})
-        self._state = self.trainer.local_state(self._to_device(t["model"]))
+            path, {"model": self._layout.global_state(self._state)})
+        self._state = self._layout.local_state(self._to_device(t["model"]))
 
 
 @register_runtime("zero", description="DynaComm-bucketed ZeRO trainer, "
@@ -295,6 +306,64 @@ class ZeroRuntime(_CompiledRuntime):
         return simulate_iteration(self._costs, *self._decision)
 
 
+@register_runtime("dynamic", description="run-time loop: re-profile + "
+                                         "re-plan per epoch, swap the plan's "
+                                         "step live")
+class DynamicRuntime(_CompiledRuntime):
+    """Epoch-boundary re-scheduling (paper Section IV-C) over ZeRO."""
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.dist.dynamic import DynamicTrainer
+        detector = None
+        if config.schedule.drift_detect:
+            from repro_torch.core import EwmaDriftDetector
+            detector = EwmaDriftDetector()
+        net = (config.schedule.network or NetworkConfig()).build()
+        self.trainer = DynamicTrainer(
+            cfg=arch, optimizer=config.build_optimizer(), network=net,
+            steps_per_epoch=config.schedule.reschedule_every, device=device,
+            strategy=config.schedule.strategy, input_shape=self.shape,
+            cost_source=config.measure.cost_source,
+            compute_flops_per_s=config.measure.compute_flops_per_s,
+            measure_iters=config.measure.measure_iters,
+            measure_warmup=config.measure.measure_warmup,
+            remeasure_every=config.measure.remeasure_every,
+            drift_detector=detector, zero3=config.execution.zero3,
+            aux_weight=config.aux_weight,
+            async_planning=config.schedule.async_planning,
+            plan_cache_size=config.schedule.plan_cache_size)
+        self._state = self.trainer.init_state(
+            _generator(device, config.seed))
+
+    @property
+    def events(self):
+        return tuple(self.trainer.events) + tuple(self._eval_events)
+
+    @property
+    def plan(self):
+        return self.trainer.plan
+
+    def step(self, batch) -> float:
+        self._state, loss = self.trainer.step(self._state, batch)
+        self._account(self.trainer.base.specs, self.trainer.plan,
+                      self.trainer.base.axis_size)
+        self._data_idx += 1
+        return float(loss)
+
+    def timeline(self):
+        return self.trainer.timeline()
+
+    def save_state(self, path: str) -> None:
+        super().save_state(path)
+        if self._layout.rank == 0:
+            self.trainer.save_loop_state(path + ".loop")
+
+    def restore_state(self, path: str) -> None:
+        super().restore_state(path)
+        self.trainer.restore_loop_state(path + ".loop")
+
+
 class _PSBase(_CompiledRuntime):
     """Shared topology construction for the synchronous PS regimes."""
 
@@ -337,3 +406,58 @@ class PSRuntime(_PSBase):
 
     def timeline(self):
         return self.trainer.timeline(self.shape)
+
+
+@register_runtime("dynamic-ps", description="run-time loop in the PS "
+                                            "regime: consensus re-plan per "
+                                            "topology epoch")
+class DynamicPSRuntime(_PSBase):
+    """Topology-epoch re-planning over the sync PS trainer."""
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.ps import DynamicPSTrainer
+        self.trainer = DynamicPSTrainer(
+            cfg=arch, optimizer=config.build_optimizer(),
+            topology=self._build_topology(),
+            steps_per_epoch=config.schedule.reschedule_every,
+            input_shape=self.shape, device=device,
+            strategy=config.schedule.strategy,
+            zero3=config.execution.zero3, aux_weight=config.aux_weight,
+            compressor=config.compression.build(),
+            cost_source=config.measure.cost_source,
+            remeasure_every=config.measure.remeasure_every,
+            measure_iters=config.measure.measure_iters,
+            measure_warmup=config.measure.measure_warmup,
+            async_planning=config.schedule.async_planning,
+            plan_cache_size=config.schedule.plan_cache_size)
+        self._state = self.trainer.init_state(
+            _generator(device, config.seed))
+
+    @property
+    def events(self):
+        return tuple(self.trainer.events) + tuple(self._eval_events)
+
+    @property
+    def plan(self):
+        return self.trainer.plan
+
+    def step(self, batch) -> float:
+        self._state, loss = self.trainer.step(self._state, batch)
+        self._account(self.trainer.base.specs, self.trainer.plan,
+                      self.trainer.base.topology.num_workers,
+                      self.trainer.compressor)
+        self._data_idx += 1
+        return float(loss)
+
+    def timeline(self):
+        return None if self.trainer.plan is None else self.trainer.timeline()
+
+    def save_state(self, path: str) -> None:
+        super().save_state(path)
+        if self._layout.rank == 0:
+            self.trainer.save_loop_state(path + ".loop")
+
+    def restore_state(self, path: str) -> None:
+        super().restore_state(path)
+        self.trainer.restore_loop_state(path + ".loop")

@@ -1,10 +1,14 @@
-"""Print how far the port's compressed ``ps`` path sits from the reference
-on the CPU: the numbers behind the tolerances of ``tests/test_torch_ps.py``.
+"""Print how far the port's compressed ``ps`` and dynamic paths sit from
+the reference on the CPU: the numbers behind the tolerances of
+``tests/test_torch_ps.py``, ``tests/test_torch_dynamic.py`` and
+``tests/test_torch_dynamic_ps.py``.
 
     JAX_PLATFORMS=cpu PYTHONPATH=src python tests/helpers/torch_parity_report.py
 
-1. ``ps.json`` plain, int8 and top-k (0.01), 5 steps from the reference's
-   initial state in both packages: the largest relative loss gap.
+1. ``ps.json`` plain, int8 and top-k (0.01), 5 steps, and
+   ``dynamic.json`` / ``dynamic_ps.json`` (plain and int8), 6 steps across
+   their plan swap, from the reference's initial state in both packages:
+   the largest relative loss gap.
 2. One jitted int8 reference step: its error-feedback residuals against
    ``corrected - compressed`` rounded twice (as written) and once (a fused
    multiply-add), on the reference's own gradients (taken out of the step
@@ -19,8 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..")
-PS_JSON = os.path.join(ROOT, "examples", "runtime_configs", "ps.json")
+CONFIGS = os.path.join(ROOT, "examples", "runtime_configs")
+PS_JSON = os.path.join(CONFIGS, "ps.json")
 STEPS = 5
+DYNAMIC_STEPS = 6
 
 
 def loss_gaps() -> None:
@@ -30,21 +36,29 @@ def loss_gaps() -> None:
     from repro_torch.interop import zero_state_from_numpy
     from repro_torch.runtime import (CompressionConfig, RuntimeConfig,
                                      build_runtime)
-    for scheme, frac in (("none", None), ("int8", None), ("topk", 0.01)):
-        jrt = jbuild(dataclasses.replace(JR.load(PS_JSON),
+    runs = [("ps", scheme, frac, STEPS)
+            for scheme, frac in (("none", None), ("int8", None),
+                                 ("topk", 0.01))]
+    runs += [("dynamic", "none", None, DYNAMIC_STEPS),
+             ("dynamic_ps", "none", None, DYNAMIC_STEPS),
+             ("dynamic_ps", "int8", None, DYNAMIC_STEPS)]
+    for name, scheme, frac, steps in runs:
+        path = os.path.join(CONFIGS, f"{name}.json")
+        jrt = jbuild(dataclasses.replace(JR.load(path),
                                          compression=JC(scheme, frac)))
         init = jax.tree_util.tree_map(np.asarray, jrt._state)
-        want = jrt.fit(STEPS)
+        want = jrt.fit(steps)
         rt = build_runtime(dataclasses.replace(
-            RuntimeConfig.load(PS_JSON),
+            RuntimeConfig.load(path),
             compression=CompressionConfig(scheme, frac)), device="cpu")
+        zero = getattr(rt.trainer, "base", rt.trainer)
         rt._state = zero_state_from_numpy(
-            rt.trainer, init["flat_params"], init["opt"].mu, init["opt"].nu,
+            zero, init["flat_params"], init["opt"].mu, init["opt"].nu,
             int(init["opt"].step))
-        got = rt.fit(STEPS)
+        got = rt.fit(steps)
         gap = np.max(np.abs(np.subtract(got, want)) / np.abs(want))
-        print(f"{scheme}: {STEPS}-step losses, largest relative gap "
-              f"{gap:.3g}")
+        print(f"{name}.json {scheme}: {steps}-step losses, largest "
+              f"relative gap {gap:.3g}")
 
 
 def residual_rounding() -> None:

@@ -440,3 +440,60 @@ def test_hybrid_smoke_config_on_the_card_matches_the_cpu(cuda, tmp_path):
           f"{gap:.3g}")
     assert np.all(np.isfinite(got))
     assert gap <= HYBRID_CARD_CPU_RTOL
+
+
+def test_measured_costs_come_from_cuda_events(cuda, monkeypatch):
+    """On the card each measured fc / bc sample is a pair of CUDA events
+    around the call (never the host clock), one pair per call."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import LayerTimingHook
+    from repro_torch.data.pipeline import SyntheticText
+    from repro_torch.dist.zero import ZeroTrainer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import measure
+    from repro_torch.runtime.replan import sequential_plan
+
+    made = []
+
+    class CountedEvent(torch.cuda.Event):
+        def __new__(cls, *args, **kwargs):
+            made.append(kwargs.get("enable_timing", False))
+            return super().__new__(cls, *args, **kwargs)
+
+    def host_clock(*args, **kwargs):
+        raise AssertionError("the card's samples must not use the host clock")
+
+    arch = get_config("granite-3-2b").reduced()
+    zero = ZeroTrainer(cfg=arch, plan=sequential_plan(arch.num_layers + 2),
+                       optimizer=adamw(1e-3), device=cuda)
+    try:
+        state = zero.init_state(torch.Generator(device=cuda).manual_seed(0))
+        batch = SyntheticText(arch.vocab_size, 32, 4, seed=0).batch(0)
+        hook = LayerTimingHook(warmup=1)
+        monkeypatch.setattr(torch.cuda, "Event", CountedEvent)
+        monkeypatch.setattr(hook, "timed", host_clock)
+        measure.measure_layer_times(zero, hook, state, batch, iters=2)
+    finally:
+        torch.distributed.destroy_process_group()
+    L = zero.num_layers
+    assert made.count(True) == 2 * 3 * 2 * L    # (start, end) x calls
+    for phase in ("fc", "bc"):
+        for layer in range(L):
+            assert hook.num_samples(phase, layer) == 3
+        v = hook.median(phase, L)
+        assert np.all(np.isfinite(v)) and np.all(v > 0)
+
+
+def test_block_waits_for_a_tuple(cuda):
+    """``_block`` returns only once the work that made every leaf of a
+    tuple / list / dict is done."""
+    from repro_torch.core.profiler import _block
+    x = torch.ones(4, device=cuda)
+    for make in (lambda a: (a, a * 2), lambda a: [a, {"k": (a,)}]):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)          # ~0.1 s of device time
+        y = x + 1
+        done = torch.cuda.Event()
+        done.record()
+        _block(make(y))
+        assert done.query()

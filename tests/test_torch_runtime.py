@@ -169,11 +169,18 @@ def test_launcher_runs_on_cpu_and_dumps_config(capsys):
 
 
 def test_unported_runtimes_raise():
-    for name in ("ps_async", "dynamic", "pipeline"):
+    for name in ("ps_async", "dynamic_ps_async", "fleet_async", "pipeline"):
         cfg = RuntimeConfig.load(os.path.join(
             CONFIGS, f"{name}.json"))
         with pytest.raises(ValueError, match="not ported"):
             build_runtime(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["dynamic", "dynamic_ps"])
+def test_dynamic_runtimes_build(name):
+    rt = build_runtime(RuntimeConfig.load(os.path.join(
+        CONFIGS, f"{name}.json")), device="cpu")
+    assert rt.plan is None and rt.events == ()     # plans at the first step
 
 
 def test_default_device_is_cuda_and_raises_without_a_card():
