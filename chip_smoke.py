@@ -30,23 +30,40 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    buckets at step 2), plans, events, collective counts and launches
    asserted against the port's own ``core``, losses bitwise phase
    ``main``'s, and the same with async planning; the measured-cost run
-   (fc / bc by CUDA events at epochs 0 and 1) beside a traced step; and
+   (fc / bc by CUDA events, one call a layer, at epochs 0 and 1) beside a
+   traced step; and
    ``dynamic-ps`` on ``dynamic_ps.json``'s topology, plain (the push plan
    re-segments) and with int8 pushes (it does not);
-6. ``hybrid``: 10 ZeRO steps of full-width recurrentgemma-2b (18 RG-LRU
+6. ``hybrid``: 4 ZeRO steps of full-width recurrentgemma-2b (18 RG-LRU
    blocks through the ``rglru_scan`` kernel and its fused backward
    ``rglru_scan_bwd``, 8 local-attention blocks
    through flash attention at head dim 256), launches asserted against the
    plan and the layer kinds; then 3 steps with the scan replaced by
    its plain loop (autograd through it), whose losses must equal bitwise;
-7. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
-   / ``dynamic.json`` / ``dynamic_ps.json`` smoke configs through the
-   launcher (``ps.json`` plain, int8 and top-k); zero against local to
+7. ``async``: the bounded-staleness asynchronous PS.  The paper's small
+   CNN (3 workers, SGD 0.05, 12 accepted pushes at k = 1) under ``reject``
+   and ``wait``, its events exactly and its losses to a tolerance against
+   the port on the CPU, and the paper's Fig. 10 claim (sequential against
+   DynaComm plan, losses bitwise); then full-width granite-3-2b under
+   ``ps_async.json``'s schedule (2 workers, 2 servers, 10 / 1 Gbps, k = 1,
+   ``wait``, AdamW): ``ps-async`` plain at 40 layers (events, losses,
+   ledger against the segment formula, seconds a push, peak memory, flash
+   launches per gradient computation; again with the plain attention,
+   the same events and the losses to a tolerance), ``dynamic-ps-async``
+   under ``dynamic_ps_async.json``'s schedule (re-plans against the
+   port's own ``core``; the same commit order and losses as
+   ``ps-async``) and ``ps-async`` with int8 pushes at 20 layers (launches
+   per layer and push, the push ratio against its formula, the plain
+   round trip's losses bitwise);
+8. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
+   / ``dynamic.json`` / ``dynamic_ps.json`` / ``ps_async.json`` /
+   ``ps_async_int8.json`` / ``dynamic_ps_async.json`` smoke configs through
+   the launcher (``ps.json`` plain, int8 and top-k); zero against local to
    fp32 tolerance, zero bitwise across the four scheduling strategies,
    and plain ps bitwise equal to zero; then ``ps.json`` plain, int8 and
-   top-k, ``dynamic.json``, ``dynamic_ps.json`` and a reduced
-   recurrentgemma-2b ``zero`` run, on the card against the port on the
-   CPU from one initial state, to a stated tolerance.
+   top-k, ``dynamic.json``, ``dynamic_ps.json``, the three async configs
+   and a reduced recurrentgemma-2b ``zero`` run, on the card against the
+   port on the CPU from one initial state, to a stated tolerance.
 
 The last lines are ``nvidia-smi``'s line, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
@@ -87,7 +104,7 @@ MAIN = dict(runtime="zero", arch="granite-3-2b", reduced=False, batch=2,
             seq=1024, optimizer="adamw")
 PS = dict(MAIN, runtime="ps")              # + ps.json's topology (default)
 HYBRID = dict(MAIN, arch="recurrentgemma-2b")
-HYBRID_STEPS = 10         # past the loss's rise at step 3 (ROADMAP queue 3)
+HYBRID_STEPS = 4          # past the loss's rise at step 3 (ROADMAP queue 3)
 DYNAMIC_STEPS = 4         # a re-plan every 2 steps: the swap at step 2
 # the plans the 10 -> 1 Gbps shift gives at full width (pull, push bucket
 # sizes), computed host-only with the reference's core
@@ -97,6 +114,12 @@ DYNAMIC_PS_PUSH = ((40, 2), (38, 2, 2))   # dynamic_ps.json, plain pushes
 MEMORY_SLACK = 1 << 30    # a dynamic run's peak over the main path's
 HYBRID_SMOKE_SEQ = 80           # past the reduced window of 64
 HYBRID_CARD_CPU_RTOL = 2e-6    # ps.json's bound; 7.8e-8 measured on an H100
+CNN_PUSHES = 12           # the reference's async CNN tests
+FIG10_PUSHES = 8
+ASYNC_PUSHES = 6          # full-width async runs, accepted pushes each
+ASYNC_INT8_PUSHES = 4
+ASYNC_INT8_LAYERS = 20    # int8 adds a residual per worker: 40 do not fit
+ASYNC_CONFIGS = ("ps_async", "ps_async_int8", "dynamic_ps_async")
 TOPK_FRACTION = 0.01
 PS_SCHEMES = (("int8", ("compress_quantize", "compress_dequantize")),
               ("topk", ("compress_sparsify", "compress_densify")))
@@ -1249,7 +1272,7 @@ def phase_dynamic(main: dict, ps_losses: dict) -> dict:
     # -- dynamic, measured costs: epochs 0 and 1 -------------------------
     cfg = dynamic_config("dynamic", schedule=dict(reschedule_every=1),
                          measure=dict(cost_source="measured",
-                                      measure_iters=3, measure_warmup=1))
+                                      measure_iters=1, measure_warmup=1))
     rt = build_runtime(cfg)
     tr = rt.trainer
     walls = []
@@ -1433,6 +1456,362 @@ def phase_hybrid(profile: bool) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the asynchronous PS (the paper's CNN, then granite-3-2b at full
+# width)
+# ---------------------------------------------------------------------------
+
+
+def _fixed_cnn_batch(*_):
+    """The reference's one fixed CNN batch (tests/test_ps.py::_fixed_batch),
+    for every worker and attempt."""
+    import numpy as np
+    r = np.random.default_rng(7)
+    return {"images": torch.from_numpy(
+                r.normal(size=(8, 32, 32, 3)).astype(np.float32)),
+            "labels": torch.from_numpy(r.integers(0, 10, size=(8,)))}
+
+
+def cnn_async(device, throttle, plan=None, workers=3, staleness=1):
+    """The reference's ``_async_trainer`` fixture: the small CNN from one
+    seeded CPU draw, SGD 0.05, behind 10 / 1 Gbps links, on ``device``."""
+    from repro_torch import tree
+    from repro_torch.core import plan_from_decision
+    from repro_torch.models.cnn import small_cnn_init, small_cnn_loss
+    from repro_torch.optim import sgd
+    from repro_torch.ps import AsyncPSTrainer, PSTopology, asymmetric_link
+    params = tree.tree_map(lambda x: x.to(device), small_cnn_init(
+        torch.Generator().manual_seed(0)))
+    topo = PSTopology(num_servers=2, links=tuple(
+        asymmetric_link(10e9, 1e9) for _ in range(workers)),
+        worker_flops=(1e10,) * workers)
+    return AsyncPSTrainer(
+        init_layers=params["layers"],
+        loss_fn=lambda ls, b: small_cnn_loss({"layers": ls}, b["images"],
+                                             b["labels"]),
+        optimizer=sgd(0.05), topology=topo, staleness=staleness,
+        throttle=throttle, plan=plan or plan_from_decision(
+            ((1, 3), (4, 5)), ((4, 5), (1, 3)), 5))
+
+
+def event_rows(log) -> list:
+    """(worker, version, staleness, accepted, wait_s) of each commit."""
+    return [(e.worker, e.version, e.result.staleness, e.result.accepted,
+             e.wait_s) for e in log.events]
+
+
+def rel_gap(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_async_cnn() -> None:
+    """The CNN under ``reject`` and ``wait`` at k = 1 on the card against
+    the port on the CPU, and the paper's Fig. 10 claim on the card."""
+    from repro_torch.core import plan_from_decision, schedule
+    from repro_torch.data import SyntheticCIFAR
+    from repro_torch.ps import PSTopology, asymmetric_link
+    from repro_torch.ps.dynamic import profiles_from_specs
+    from repro_torch.runtime.replan import sequential_plan
+    card = torch.device("cuda")
+    for throttle in ("reject", "wait"):
+        cpu = cnn_async("cpu", throttle).run(CNN_PUSHES, _fixed_cnn_batch)
+        got = cnn_async(card, throttle).run(CNN_PUSHES, _fixed_cnn_batch)
+        if event_rows(got) != event_rows(cpu):
+            raise AssertionError(f"CNN/{throttle}: card events "
+                                 f"{event_rows(got)} != CPU "
+                                 f"{event_rows(cpu)}")
+        gap = rel_gap(got.losses, cpu.losses)
+        if not gap <= CARD_CPU_RTOL:
+            raise AssertionError(f"CNN/{throttle}: card {got.losses} vs CPU "
+                                 f"{cpu.losses}: rel gap {gap:.3g}")
+        say("async", f"CNN/{throttle} k=1, 3 workers, {CNN_PUSHES} accepted "
+                     f"pushes: events (worker, version, staleness, accepted, "
+                     f"wait_s) {event_rows(got)} == the CPU's; rejected "
+                     f"{got.num_rejected}; losses {got.losses}; rel gap to "
+                     f"the CPU {gap:.3g} (rtol {CARD_CPU_RTOL})")
+    # Fig. 10: one worker at k = 0 under the sequential and a segmented
+    # DynaComm plan; the plan changes the messages, never the math
+    pipe = SyntheticCIFAR(32, seed=0)
+    probe = cnn_async("cpu", "reject", workers=1, staleness=0)
+    costs = PSTopology(num_servers=1, links=(asymmetric_link(1e9, 1e8),),
+                       worker_flops=(1e9,)).topology_costs(
+        profiles_from_specs(probe.specs, flops_per_param=1000.0))
+    dyn = plan_from_decision(*schedule(costs.workers[0], "dynacomm"), 5)
+    if len(dyn.forward) + len(dyn.backward) <= 2:
+        raise AssertionError(f"the DynaComm plan {dyn} is not segmented")
+    losses = {}
+    for name, plan in (("sequential", sequential_plan(5)),
+                       ("dynacomm", dyn)):
+        losses[name] = cnn_async(card, "reject", plan, workers=1,
+                                 staleness=0).run(
+            FIG10_PUSHES, lambda w, i: pipe.batch(i)).losses
+    if losses["dynacomm"] != losses["sequential"]:
+        raise AssertionError(f"Fig. 10: losses differ across plans {losses}")
+    say("async", f"Fig. 10 on the card (SyntheticCIFAR batch 32, "
+                 f"{FIG10_PUSHES} pushes): sequential (1 / 1 messages) and "
+                 f"DynaComm ({len(dyn.forward)} pull / {len(dyn.backward)} "
+                 f"push segments) give the same losses bitwise: "
+                 f"{losses['sequential']}")
+
+
+def async_config(name: str):
+    """Full-width granite-3-2b (batch 2 x seq 1024) under the checked-in
+    ``name``.json's schedule, execution, optimizer and compression."""
+    from repro_torch.runtime import RuntimeConfig
+    smoke = RuntimeConfig.load(str(ROOT / "examples" / "runtime_configs" /
+                                   f"{name}.json"))
+    return dataclasses.replace(smoke, reduced=False, batch=MAIN["batch"],
+                               seq=MAIN["seq"])
+
+
+def async_run(config, pushes: int, model=None, hook=None) -> dict:
+    """``pushes`` accepted pushes of an async runtime, each timed by the
+    host clock to a synchronised card, the launches counted over them
+    (``hook(runtime)`` runs between the build and the first push)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import build_runtime
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = build_runtime(config, model)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    if hook is not None:
+        hook(rt)
+    reset_launch_counts()
+    losses, secs = timed_steps(rt, pushes)
+    counts = launch_counts()
+    loop = getattr(rt.trainer, "trainer", rt.trainer)
+    out = dict(rt=rt, loop=loop, losses=losses, secs=secs, counts=counts,
+               built=built, peak=torch.cuda.max_memory_allocated(),
+               events=event_rows(loop.log), computations=loop.computations,
+               attempts=dict(loop._loop.attempts))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{config.runtime}: non-finite losses {losses}")
+    return out
+
+
+def witness_flash(cfg, kernel_run, arch) -> None:
+    """The same pushes from the same seed with the plain attention in
+    place of the flash kernel: the same events; the computations pinned at
+    version 0 (the same weights in both runs) to CARD_CPU_RTOL, the later
+    ones printed (AdamW's first, sign-like steps carry the runs apart).
+    Each of the witness's computations also takes its loss through flash
+    on its own weights and batch (no_grad): flash against the plain
+    attention on the same inputs, every pair to CARD_CPU_RTOL."""
+    from repro_torch.kernels.flash_attention.ops import _ref_fwd
+    from repro_torch.models import attention
+    kernel = attention.flash_attention
+    use_flash = [False]
+
+    def switch(q, k, v, causal, window, softcap):
+        if use_flash[0]:
+            return kernel(q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+        return _ref_fwd(q, k, v, causal, window, softcap)
+
+    pairs = []
+
+    def hook(rt):
+        grad_fn, loss_fn = rt.trainer._grad_fn, rt._loss_fn
+
+        def witnessed(layers, batch):
+            use_flash[0] = True
+            try:
+                with torch.no_grad():
+                    flash = float(loss_fn(layers, batch))
+            finally:
+                use_flash[0] = False
+            loss, grads = grad_fn(layers, batch)
+            pairs.append((loss, flash))
+            return loss, grads
+        rt.trainer._grad_fn = witnessed
+
+    attention.flash_attention = switch
+    try:
+        witness = async_run(cfg, ASYNC_PUSHES, hook=hook)
+    finally:
+        attention.flash_attention = kernel
+    if witness["events"] != kernel_run["events"]:
+        raise AssertionError(f"witness events {witness['events']} != "
+                             f"{kernel_run['events']}")
+    flash_launches = witness["counts"]["flash_attention_fwd"]
+    attn = sum(k in ("global_attn", "local_attn") for k in arch.layer_kinds())
+    gaps = [abs(a - b) / abs(b) for a, b in zip(kernel_run["losses"],
+                                                witness["losses"])]
+    pinned0 = [g for g, e in zip(gaps, kernel_run["events"]) if e[1] == 0]
+    same = max(abs(p - f) / abs(p) for p, f in pairs)
+    say("async", f"ps-async: plain-attention witness: the same events; "
+                 f"losses {witness['losses']}; rel gap to the kernel run by "
+                 f"push {[float(f'{g:.3g}') for g in gaps]} (the pushes "
+                 f"computed at version 0, on the same weights: "
+                 f"{[float(f'{g:.3g}') for g in pinned0]}, rtol "
+                 f"{CARD_CPU_RTOL}); peak {witness['peak'] / 2**30:.2f} GiB")
+    say("async", f"ps-async: flash against the plain attention on each of "
+                 f"the witness's {len(pairs)} computations' own weights and "
+                 f"batch: largest rel gap {same:.3g} (rtol {CARD_CPU_RTOL}); "
+                 f"{flash_launches} flash launches, one per layer of each "
+                 f"(no_grad)")
+    if not max(pinned0) <= CARD_CPU_RTOL or not same <= CARD_CPU_RTOL:
+        raise AssertionError(f"ps-async: flash against the plain attention: "
+                             f"version-0 gaps {pinned0}, same-input gap "
+                             f"{same:.3g} > {CARD_CPU_RTOL}")
+    if flash_launches != attn * len(pairs):
+        raise AssertionError(f"the witness launched flash {flash_launches} "
+                             f"times, not once a layer of its "
+                             f"{len(pairs)} no_grad forwards")
+
+
+def check_async_launches(run, arch, compress=()) -> None:
+    """Flash twice per attention block per gradient computation (forward
+    and remat's recompute), each ``compress`` kernel once per sched layer
+    per accepted push, nothing else."""
+    kinds = arch.layer_kinds()
+    attn = sum(k in ("global_attn", "local_attn") for k in kinds)
+    want = {name: 0 for name in run["counts"]}
+    want["flash_attention_fwd"] = 2 * attn * run["computations"]
+    for name in compress:
+        want[name] = (arch.num_layers + 2) * len(run["losses"])
+    if run["counts"] != want:
+        raise AssertionError(f"launches {run['counts']} != {want}")
+
+
+def check_async_ledger(run) -> None:
+    """Pull and push bytes per worker: the FlatSpec formula per segment of
+    the worker's plan, times its pulls (computations) and pushes."""
+    from repro_torch.dist.collectives import bucket_bytes
+    loop = run["loop"]
+    led, specs = loop.server.ledger, loop.specs
+    pushes = loop.log.accepted_by_worker()
+    for w, plan in enumerate(loop.plans):
+        pull = run["attempts"][w] * sum(bucket_bytes(specs, b)
+                                        for b in plan.forward)
+        push = pushes.get(w, 0) * sum(bucket_bytes(specs, b)
+                                      for b in plan.backward)
+        if (led.pulled_bytes.get(w, 0), led.pushed_bytes.get(w, 0)) != \
+                (pull, push):
+            raise AssertionError(f"worker {w}: ledger {led} != the formula's "
+                                 f"pull {pull} / push {push}")
+
+
+def report_async(tag: str, run) -> None:
+    secs = run["secs"]
+    steady = sum(secs[1:]) / len(secs[1:])
+    say("async", f"{tag}: events (worker, version, staleness, accepted, "
+                 f"wait_s) {run['events']}")
+    say("async", f"{tag}: losses {run['losses']}")
+    say("async", f"{tag}: built in {run['built']:.1f} s; push seconds "
+                 f"{[round(x, 4) for x in secs]}; steady "
+                 f"{steady * 1e3:.1f} ms/push (pushes 2-{len(secs)}, one "
+                 f"gradient computation each); {run['computations']} "
+                 f"computations; peak memory {run['peak'] / 2**30:.2f} GiB")
+    say("async", f"{tag}: launches {run['counts']}; ledger "
+                 f"{run['rt'].ledger}")
+
+
+def phase_async(profile: bool) -> None:
+    """The CNN, then ps-async plain (with a plain-attention witness),
+    dynamic-ps-async plain and ps-async int8 at 20 layers (with the plain
+    round-trip witness) at granite-3-2b's full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import plan_from_decision, schedule
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        phase_async_cnn()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    card = torch.cuda.get_device_properties(0).total_memory
+    arch = get_config(MAIN["arch"])
+
+    # -- ps-async, plain pushes, full depth ------------------------------
+    cfg = async_config("ps_async")
+    run = async_run(cfg, ASYNC_PUSHES)
+    topo = run["loop"].topology
+    say("async", f"ps-async: {arch.name} full width, {arch.num_layers} "
+                 f"layers; {topo.num_servers} servers x {topo.num_workers} "
+                 f"workers, k={cfg.execution.staleness} "
+                 f"({cfg.execution.throttle}), {cfg.optimizer}; plan "
+                 f"{sizes(run['loop'].plan)}")
+    check_async_launches(run, arch)
+    check_async_ledger(run)
+    report_async("ps-async", run)
+    if profile:
+        profile_step(run["rt"], sum(run["secs"][1:]) / len(run["secs"][1:]),
+                     "profile ps-async")
+    if not run["peak"] < card:
+        raise AssertionError(f"ps-async: peak {run['peak']} >= card {card}")
+    plain = {k: v for k, v in run.items() if k not in ("rt", "loop")}
+    del run
+    witness_flash(cfg, plain, arch)
+
+    # -- dynamic-ps-async, plain pushes, full depth ----------------------
+    cfg = async_config("dynamic_ps_async")
+    run = async_run(cfg, ASYNC_PUSHES)
+    tr = run["rt"].trainer
+    check_async_launches(run, arch)
+    check_async_ledger(run)
+    L = arch.num_layers + 2
+    for e in tr.events:
+        costs = tr.costs_for_epoch(e.epoch)
+        want = tuple(plan_from_decision(*schedule(c, "dynacomm"), L)
+                     for c in costs.workers)
+        if e.worker_plans != want:
+            raise AssertionError(f"epoch {e.epoch}: plans "
+                                 f"{[sizes(p) for p in e.worker_plans]} != "
+                                 f"the port's core {[sizes(p) for p in want]}")
+        say("async", f"dynamic-ps-async: re-plan epoch {e.epoch} at push "
+                     f"{e.at_push}: per-worker plans "
+                     f"{[sizes(p) for p in e.worker_plans]} == the port's "
+                     f"core; {'re-segmented' if e.plan_changed else 'unchanged'}"
+                     f"; sched {e.scheduling_seconds * 1e3:.3f} ms against the "
+                     f"dt + gt1 window {costs.idle_window * 1e3:.1f} ms "
+                     f"(hidden={e.overhead_hidden})")
+    report_async("dynamic-ps-async", run)
+    same = [r[:4] for r in run["events"]] == [r[:4] for r in plain["events"]]
+    if not same or run["losses"] != plain["losses"]:
+        raise AssertionError(f"dynamic-ps-async: events {run['events']} / "
+                             f"losses {run['losses']} != ps-async's "
+                             f"{plain['events']} / {plain['losses']}")
+    say("async", f"dynamic-ps-async: the same commit order as ps-async (two "
+                 f"identical workers) and its losses bitwise")
+    del run, tr
+
+    # -- ps-async, int8 pushes, 20 layers --------------------------------
+    cfg = async_config("ps_async_int8")
+    cut = dataclasses.replace(arch, num_layers=ASYNC_INT8_LAYERS)
+    names = PS_SCHEMES[0][1]
+    run = async_run(cfg, ASYNC_INT8_PUSHES, cut)
+    check_async_launches(run, cut, names)
+    check_async_ledger(run)
+    ratio = run["rt"].ledger["push_compression_ratio"]
+    want = reference_push_ratio(run["loop"].specs, run["loop"].plan, "int8")
+    if ratio != want:
+        raise AssertionError(f"ps-async int8: push ratio {ratio!r} != the "
+                             f"formula's {want!r}")
+    say("async", f"ps-async int8: {cut.num_layers} layers (the one depth cut), "
+                 f"plan {sizes(run['loop'].plan)}; push ratio {ratio:.4f}x == "
+                 f"formula")
+    report_async("ps-async int8", run)
+    losses = run["losses"]
+    del run
+    free_cuda()
+    from repro_torch.runtime import build_runtime
+    rt = build_runtime(cfg, cut)
+    rt.trainer.compressor = plain_compressor("int8")
+    reset_launch_counts()
+    witness = rt.fit(ASYNC_INT8_PUSHES)
+    ran = {k: launch_counts()[k] for k in names}
+    del rt
+    free_cuda()
+    if any(ran.values()) or witness != losses:
+        raise AssertionError(f"ps-async int8: plain round trip {witness} "
+                             f"(launches {ran}) != kernel path {losses}")
+    say("async", f"ps-async int8: the plain round trip (ref.py, out of "
+                 f"place) gives the same {ASYNC_INT8_PUSHES} losses bitwise")
+
+
 def traced(fn) -> list:
     """``fn()`` under ``torch.profiler``, the card idle before and after
     the window so that it holds whole calls: the device rows of
@@ -1543,6 +1922,9 @@ def phase_configs() -> None:
     dynamic = {name: train_main(["--config", str(cfgs / f"{name}.json"),
                                  "--steps", str(STEPS), "--log-every", "0"])
                for name in ("dynamic", "dynamic_ps")}
+    asyncs = {name: train_main(["--config", str(cfgs / f"{name}.json"),
+                                "--steps", str(STEPS), "--log-every", "0"])
+              for name in ASYNC_CONFIGS}
     counts = launch_counts()
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel never ran in the configs: {counts}")
@@ -1579,6 +1961,17 @@ def phase_configs() -> None:
                        f"the static zero run); from one initial state: card "
                        f"{card}, CPU {cpu}; rel gap {gap:.3g} (rtol "
                        f"{CARD_CPU_RTOL})")
+    for name, losses in asyncs.items():
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}.json: non-finite losses {losses}")
+        gap, card, cpu = card_against_cpu(RuntimeConfig.load(
+            str(cfgs / f"{name}.json")))
+        if not gap <= CARD_CPU_RTOL:
+            raise AssertionError(f"{name}.json: card {card} vs CPU {cpu}: "
+                                 f"rel gap {gap:.3g} > {CARD_CPU_RTOL}")
+        say("configs", f"{name}.json through the launcher {losses}; from one "
+                       f"initial state: card {card}, CPU {cpu}; rel gap "
+                       f"{gap:.3g} (rtol {CARD_CPU_RTOL})")
     if not all(math.isfinite(x) for x in hybrid):
         raise AssertionError(f"non-finite reduced {HYBRID['arch']} losses "
                              f"{hybrid}")
@@ -1622,7 +2015,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one extra step of the main path, of each "
-                         "ps path and of the hybrid path with torch.profiler")
+                         "ps path, of the hybrid path and one extra push "
+                         "of ps-async with torch.profiler")
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -1643,6 +2037,7 @@ def main(argv=None) -> None:
     ps_counts, ps_losses = timed("ps", phase_ps, args.profile)
     timed("dynamic", phase_dynamic, main_run, ps_losses)
     hybrid_counts = timed("hybrid", phase_hybrid, args.profile)
+    timed("async", phase_async, args.profile)
     timed("configs", phase_configs)
     say("time", f"phase wall seconds {walls}; "
                 f"{time.perf_counter() - start:.1f} s since the start")

@@ -2,8 +2,13 @@
 
 ``--config runtime.json`` builds the runtime from a checked-in
 :class:`RuntimeConfig` (``examples/runtime_configs/{local,zero,ps,dynamic,
-dynamic_ps}.json``); otherwise the flags below map onto one, as the
-reference's launcher maps them (``--dump-config`` prints it).  With
+dynamic_ps,ps_async,ps_async_int8,dynamic_ps_async}.json``); otherwise the
+flags below map onto one, as the reference's launcher maps them
+(``--dump-config`` prints it).  ``--staleness k`` switches ``ps`` /
+``dynamic-ps`` to their asynchronous form (``ps-async`` /
+``dynamic-ps-async``: the bounded-staleness event loop, ``--throttle
+reject|wait``, ``--aggregate`` for BSP rounds, ``--ps-workers`` logical
+workers); their unit of progress is one accepted push.  With
 ``--config``, ``--compress`` (and ``--topk-fraction`` /
 ``--no-error-feedback`` with it) replaces the config's compression block,
 so one checked-in PS config runs plain, int8 or top-k.  The run goes to the
@@ -20,6 +25,9 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --reduced --runtime dynamic --steps 6 --steps-per-epoch 2 \
         --batch 4 --seq 32 --bw-gbps 10 --bw-shift-gbps 1 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
+        --reduced --runtime ps --staleness 1 --throttle wait \
+        --ps-workers 2 --steps 6 --batch 2 --seq 16 --device cpu
 
 The dynamic runtimes re-plan every ``--steps-per-epoch`` steps and print
 one line per scheduling pass (``re-segmented`` / ``unchanged``, the
@@ -52,6 +60,8 @@ def config_from_flags(args) -> RuntimeConfig:
     """The argparse → RuntimeConfig mapping of the ported runtimes (the
     reference launcher's, so equal flags give an equal config)."""
     name = args.runtime
+    if args.staleness is not None and name in ("ps", "dynamic-ps"):
+        name += "-async"
     network = topology = None
     if name in ("zero", "dynamic"):
         # pass the shift through even for 'zero': RuntimeConfig owns the
@@ -67,8 +77,10 @@ def config_from_flags(args) -> RuntimeConfig:
                                  f"{args.up_shift_gbps}")
             up_shift = args.up_gbps / args.up_shift_gbps
         topology = TopologyConfig(
-            servers=args.ps_servers, down_gbps=args.down_gbps,
-            up_gbps=args.up_gbps, worker_flops=args.worker_flops,
+            servers=args.ps_servers,
+            workers=args.ps_workers if name.endswith("async") else None,
+            down_gbps=args.down_gbps, up_gbps=args.up_gbps,
+            worker_flops=args.worker_flops,
             up_shift_factor=up_shift, shift_epoch=args.shift_epoch)
     return RuntimeConfig(
         runtime=name, arch=args.arch, reduced=args.reduced,
@@ -79,7 +91,9 @@ def config_from_flags(args) -> RuntimeConfig:
             async_planning=args.async_planning,
             plan_cache_size=args.plan_cache_size,
             network=network, topology=topology),
-        execution=ExecutionConfig(zero3=args.zero3),
+        execution=ExecutionConfig(
+            zero3=args.zero3, staleness=args.staleness,
+            throttle=args.throttle, aggregate=args.aggregate),
         measure=MeasureConfig(cost_source=args.cost_source,
                               compute_flops_per_s=args.worker_flops),
         compression=_compression(args))
@@ -87,8 +101,17 @@ def config_from_flags(args) -> RuntimeConfig:
 
 def print_events(rt) -> None:
     """One line per scheduling pass of a dynamic runtime, then its step
-    cache's first uses and hits."""
+    cache's first uses and hits (sync) or its per-worker plans (async)."""
     tr = getattr(rt, "trainer", None)
+    for e in rt.events:
+        if hasattr(e, "worker_plans"):           # async per-worker re-plan
+            segs = [(len(p.forward), len(p.backward))
+                    for p in e.worker_plans]
+            print(f"epoch {e.epoch:3d} @push {e.at_push:4d}: per-worker "
+                  f"pull/push segments {segs}  "
+                  f"{'re-segmented' if e.plan_changed else 'unchanged'}  "
+                  f"sched {e.scheduling_seconds * 1e3:.2f} ms "
+                  f"hidden={e.overhead_hidden}")
     if not hasattr(tr, "traces"):
         return
     for e in rt.events:
@@ -123,8 +146,11 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-scale variant")
     ap.add_argument("--runtime",
-                    choices=("local", "zero", "dynamic", "ps", "dynamic-ps"),
-                    default="local")
+                    choices=("local", "zero", "dynamic", "ps", "dynamic-ps",
+                             "ps-async", "dynamic-ps-async"),
+                    default="local",
+                    help="registry name; --staleness k upgrades "
+                         "ps/dynamic-ps to their -async form")
     ap.add_argument("--strategy", default="dynacomm",
                     choices=("sequential", "lbl", "ibatch", "dynacomm"))
     ap.add_argument("--steps-per-epoch", type=int, default=20,
@@ -156,6 +182,19 @@ def main(argv=None):
                          "backward instead of keeping them")
     ap.add_argument("--ps-servers", type=int, default=2,
                     help="ps: number of server shards")
+    ap.add_argument("--ps-workers", type=int, default=None,
+                    help="async ps: logical worker count (sync ps runs "
+                         "one worker per rank)")
+    ap.add_argument("--staleness", type=int, default=None,
+                    help="bounded-staleness k: switch the ps runtimes to "
+                         "asynchronous execution")
+    ap.add_argument("--throttle", choices=("reject", "wait"),
+                    default="reject",
+                    help="async ps: evict stale pushes (reject) or SSP "
+                         "wait-at-barrier (wait)")
+    ap.add_argument("--aggregate", action="store_true",
+                    help="async ps wait throttle: commit same-version "
+                         "pushes as one BSP step")
     ap.add_argument("--down-gbps", type=float, default=10.0,
                     help="ps: server→worker (pull) bandwidth per link")
     ap.add_argument("--up-gbps", type=float, default=1.0,
@@ -200,9 +239,14 @@ def main(argv=None):
         raise SystemExit(f"--steps must be >= 1, got {args.steps}")
 
     rt = build_runtime(config, device=args.device)
-    print(f"[{config.runtime}] arch {config.arch}"
-          + (" (reduced)" if config.reduced else "")
-          + f", strategy {config.schedule.strategy}, device {rt.device}")
+    spec = f"[{config.runtime}] arch {config.arch}" + \
+        (" (reduced)" if config.reduced else "") + \
+        f", strategy {config.schedule.strategy}"
+    if config.regime == "ps-async":
+        spec += (f", k={config.execution.staleness or 0} "
+                 f"({config.execution.throttle}"
+                 f"{'+aggregate' if config.execution.aggregate else ''})")
+    print(f"{spec}, device {rt.device}")
     if config.runtime in ("zero", "ps"):
         plan = rt.plan
         print(f"[{config.runtime}] {rt.trainer.axis_size} ranks; "
@@ -224,7 +268,8 @@ def main(argv=None):
 
     print_events(rt)
     led = rt.ledger
-    print(f"[{config.runtime}] {len(losses)} steps, final loss "
+    unit = "units" if config.regime == "ps-async" else "steps"
+    print(f"[{config.runtime}] {len(losses)} {unit}, final loss "
           f"{losses[-1]:.4f}; transfers: "
           f"{led['pull_bytes'] / 1e6:.1f} MB down / "
           f"{led['push_bytes'] / 1e6:.1f} MB up "
@@ -234,6 +279,13 @@ def main(argv=None):
               f"{led['push_wire_bytes'] / 1e6:.1f} MB "
               f"({config.compression.scheme}, "
               f"{led['push_compression_ratio']:.2f}x vs fp32)")
+    if config.regime == "ps-async":
+        log = rt.timeline()
+        print(f"[{config.runtime}] {len(log.accepted)} accepted / "
+              f"{log.num_rejected} rejected pushes, max staleness "
+              f"{log.max_staleness}, waited {led['waited_pushes']} "
+              f"({log.total_wait_s:.3f} simulated s), makespan "
+              f"{log.makespan:.3f} simulated s")
     if args.checkpoint:
         rt.save_state(args.checkpoint)
         print(f"saved runtime state to {args.checkpoint}")

@@ -1,5 +1,5 @@
 """One Trainer API over the ported execution regimes (``local``, ``zero``,
-``ps``, ``dynamic``, ``dynamic-ps``).
+``ps``, ``dynamic``, ``dynamic-ps``, ``ps-async``, ``dynamic-ps-async``).
 
 A frozen, JSON-round-trippable :class:`RuntimeConfig` (the reference's
 schema, so the checked-in smoke configs load unchanged) names a registered

@@ -9,12 +9,18 @@ underlying trainer stays reachable as ``.trainer``.
 The port so far has ``local`` (whole-model autograd, no collectives),
 ``zero`` (the DynaComm-bucketed ZeRO step), ``ps`` (the synchronous
 parameter-server step: the ZeRO step under a topology's consensus plan,
-optionally with compressed pushes), and their run-time re-planning loops
+optionally with compressed pushes), their run-time re-planning loops
 ``dynamic`` and ``dynamic-ps`` (re-plan per epoch, swap the plan's step
-live; each step is accounted against the plan active in it).  The dynamic
-runtimes draw their initial state from the same seeded generator as
-``zero``, so a dynamic run starts from the static run's state.
-Checkpoints written by
+live; each step is accounted against the plan active in it), and the
+asynchronous ``ps-async`` and ``dynamic-ps-async`` (the bounded-staleness
+event loop over a versioned server, per-worker re-plans per topology
+epoch in the dynamic one).  Every runtime draws its initial weights from
+the same seeded generator, so a dynamic run starts from the static run's
+state.
+
+Unit of progress: a *training step* for the synchronous regimes, an
+*accepted gradient push* for the asynchronous ones — ``fit(n)`` returns
+one loss per unit.  Checkpoints written by
 ``save_state`` embed the serialized :class:`RuntimeConfig`, so a restore
 from a mismatched runtime fails loudly instead of misreading buffers.
 """
@@ -32,6 +38,10 @@ from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.runtime.config import (NetworkConfig, RuntimeConfig,
                                         TopologyConfig)
 from repro_torch.runtime.registry import register_runtime
+
+# per-worker data streams of the async regimes stay disjoint by striding
+# the deterministic batch index (the reference's convention)
+WORKER_STRIDE = 100003
 
 
 def _plan_ledger(specs, plan, workers: int,
@@ -364,28 +374,27 @@ class DynamicRuntime(_CompiledRuntime):
         self.trainer.restore_loop_state(path + ".loop")
 
 
-class _PSBase(_CompiledRuntime):
-    """Shared topology construction for the synchronous PS regimes."""
-
-    def _build_topology(self):
-        import torch.distributed as dist
-        from repro_torch.dist.zero import default_group
-        topo_cfg = self.config.schedule.topology or TopologyConfig()
-        return topo_cfg.build(default_workers=dist.get_world_size(
-            default_group(self.device)))
+def _build_topology(config: RuntimeConfig, device: torch.device):
+    """The configured PS topology; a topology that names no workers gets
+    one per rank of the process group (made world-1 if none exists)."""
+    import torch.distributed as dist
+    from repro_torch.dist.zero import default_group
+    topo_cfg = config.schedule.topology or TopologyConfig()
+    return topo_cfg.build(default_workers=dist.get_world_size(
+        default_group(device)))
 
 
 @register_runtime("ps", description="synchronous parameter-server "
                                     "execution: consensus plan, one pull + "
                                     "one push per segment")
-class PSRuntime(_PSBase):
+class PSRuntime(_CompiledRuntime):
     """Sync PS: segmented pull/push on the group (== ZeRO bitwise)."""
 
     def __init__(self, config, arch, batch_fn, device):
         super().__init__(config, arch, batch_fn, device)
         from repro_torch.ps import PSTrainer
         self.trainer = PSTrainer.from_topology(
-            arch, self._build_topology(), config.build_optimizer(),
+            arch, _build_topology(config, device), config.build_optimizer(),
             self.shape, device=device, strategy=config.schedule.strategy,
             compressor=config.compression.build(),
             zero3=config.execution.zero3, aux_weight=config.aux_weight)
@@ -411,7 +420,7 @@ class PSRuntime(_PSBase):
 @register_runtime("dynamic-ps", description="run-time loop in the PS "
                                             "regime: consensus re-plan per "
                                             "topology epoch")
-class DynamicPSRuntime(_PSBase):
+class DynamicPSRuntime(_CompiledRuntime):
     """Topology-epoch re-planning over the sync PS trainer."""
 
     def __init__(self, config, arch, batch_fn, device):
@@ -419,7 +428,7 @@ class DynamicPSRuntime(_PSBase):
         from repro_torch.ps import DynamicPSTrainer
         self.trainer = DynamicPSTrainer(
             cfg=arch, optimizer=config.build_optimizer(),
-            topology=self._build_topology(),
+            topology=_build_topology(config, device),
             steps_per_epoch=config.schedule.reschedule_every,
             input_shape=self.shape, device=device,
             strategy=config.schedule.strategy,
@@ -461,3 +470,207 @@ class DynamicPSRuntime(_PSBase):
     def restore_state(self, path: str) -> None:
         super().restore_state(path)
         self.trainer.restore_loop_state(path + ".loop")
+
+
+class _AsyncBase(RuntimeAdapter):
+    """Shared machinery of the asynchronous (event-loop) regimes.
+
+    A unit of progress is one *accepted* gradient push.  ``fit`` drives
+    the per-worker deterministic data streams; ``step(batch)`` feeds the
+    given batch to every worker attempt until one more push commits.
+    Under BSP aggregation a whole same-version group commits at once;
+    ``step`` then returns the group's mean loss (the synchronous-step
+    convention) and ``fit`` may return up to ``W - 1`` more losses than
+    requested.
+
+    The loss recomputes each block in the backward (``remat=True``): the
+    same numbers as keeping the activations, and the memory the server's
+    versions and the gradients in flight need at full width.
+    """
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.models import params_from_sched_layers, train_loss
+        aux = config.aux_weight
+
+        def loss_fn(layer_list, batch):
+            return train_loss(arch, params_from_sched_layers(layer_list),
+                              batch, aux_weight=aux, remat=True)
+
+        self._loss_fn = loss_fn
+        self._started = False
+        self._reported = 0           # accepted events already returned
+
+    def _initial_layers(self) -> List[Any]:
+        """The seeded initial weights as sched-layer trees (the trainer
+        flattens them into the server; nothing here keeps them)."""
+        from repro_torch.models import init_params, sched_layer_trees
+        return sched_layer_trees(init_params(
+            self.arch, _generator(self.device, self.config.seed),
+            torch.float32, self.device))
+
+    # each concrete class provides: _run_pushes(n, wfn) -> AsyncRunLog,
+    # and a `_server` property
+    def _run_pushes(self, num_pushes, worker_batch_fn):
+        raise NotImplementedError
+
+    @property
+    def _server(self):
+        raise NotImplementedError
+
+    def _worker_batch_fn(self):
+        fn = self._batch_fn
+        return lambda w, i: fn(w * WORKER_STRIDE + i)
+
+    def _drive(self, pushes: int, wfn) -> List[float]:
+        log = self._run_pushes(pushes, wfn)
+        self._started = True
+        fresh = log.accepted[self._reported:]
+        self._reported = len(log.accepted)
+        self._data_idx += len(fresh)
+        return [e.loss for e in fresh]
+
+    def fit(self, steps: int, *, log_every: int = 0,
+            eval_fn: Optional[Callable[[], float]] = None,
+            eval_every: int = 0, checkpoint_every: int = 0,
+            checkpoint_path: Optional[str] = None) -> List[float]:
+        # accepted pushes land in chunks (BSP aggregation can commit a
+        # whole cohort), so evals and checkpoints trigger on *boundary
+        # crossings* of the cumulative push count rather than exact
+        # multiples
+        self._check_eval(eval_fn, eval_every)
+        self._check_checkpoint(checkpoint_every, checkpoint_path)
+        losses: List[float] = []
+        wfn = self._worker_batch_fn()
+        while len(losses) < steps:
+            chunk = min(log_every or steps, steps - len(losses))
+            if eval_fn is not None:
+                chunk = min(chunk, eval_every - self._data_idx % eval_every)
+            if checkpoint_every:
+                chunk = min(chunk, checkpoint_every -
+                            self._data_idx % checkpoint_every)
+            before = self._data_idx
+            losses.extend(self._drive(chunk, wfn))
+            if log_every:
+                print(f"push {self._data_idx:4d}  loss {losses[-1]:.4f}")
+            if eval_fn is not None and \
+                    self._data_idx // eval_every > before // eval_every:
+                self._record_eval(eval_fn)
+            if checkpoint_every and self._data_idx // checkpoint_every > \
+                    before // checkpoint_every:
+                self.save_state(checkpoint_path)
+        return losses
+
+    def step(self, batch) -> float:
+        fresh = self._drive(1, lambda w, i: batch)
+        return float(np.mean(fresh))
+
+    @property
+    def ledger(self) -> Dict[str, Any]:
+        led = self._server.ledger
+        return {"pull_bytes": sum(led.pulled_bytes.values()),
+                "push_bytes": sum(led.pushed_bytes.values()),
+                "pull_wire_bytes": sum(led.pulled_wire_bytes.values()),
+                "push_wire_bytes": sum(led.pushed_wire_bytes.values()),
+                "push_compression_ratio": led.compression_ratio("push"),
+                "num_pulls": led.num_pulls,
+                "num_pushes": led.num_pushes,
+                "rejected_pushes": led.rejected_pushes,
+                "waited_pushes": led.waited_pushes}
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint the server's head parameters + optimizer state.
+
+        Event-loop state (in-flight computations) is not serialized; the
+        restore discards the loop, so training resumes from the restored
+        parameters at simulated time 0."""
+        self._save_tree(path, {"server": self._server.state_dict()})
+
+    def restore_state(self, path: str) -> None:
+        t = self._load_tree(path, {"server": self._server.state_dict()})
+        self._server.load_state_dict(t["server"])
+        # in-flight gradients were computed against pre-restore weights
+        # and pinned at pre-restore versions: committing them against the
+        # rolled-back server would corrupt the trajectory
+        self.trainer.reset_loop()
+        self._started = False
+        self._reported = 0
+
+
+@register_runtime("ps-async", description="bounded-staleness asynchronous "
+                                          "PS: reject or SSP-wait "
+                                          "throttle, optional BSP "
+                                          "aggregation")
+class PSAsyncRuntime(_AsyncBase):
+    """Event-driven bounded-staleness execution over a static topology."""
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.core import plan_from_decision
+        from repro_torch.core.scheduler import consensus_decision
+        from repro_torch.models import num_sched_layers
+        from repro_torch.models.profiles import layer_profiles
+        from repro_torch.ps import AsyncPSTrainer
+        topo = _build_topology(config, device)
+        comp = config.compression.build()
+        costs = topo.topology_costs(layer_profiles(arch, self.shape),
+                                    compressor=comp)
+        decision, self.sync_makespan = consensus_decision(
+            costs, config.schedule.strategy)
+        plan = plan_from_decision(*decision, num_sched_layers(arch))
+        self.trainer = AsyncPSTrainer(
+            init_layers=self._initial_layers(), loss_fn=self._loss_fn,
+            optimizer=config.build_optimizer(), topology=topo, plan=plan,
+            staleness=config.execution.staleness or 0,
+            throttle=config.execution.throttle,
+            aggregate=config.execution.aggregate, costs=costs,
+            compressor=comp)
+
+    @property
+    def _server(self):
+        return self.trainer.server
+
+    def _run_pushes(self, num_pushes, wfn):
+        return self.trainer.run(num_pushes, wfn, reset=not self._started)
+
+    def timeline(self):
+        return self.trainer.log
+
+
+@register_runtime("dynamic-ps-async",
+                  description="per-worker re-planning per topology epoch "
+                              "over the bounded-staleness event loop")
+class DynamicPSAsyncRuntime(_AsyncBase):
+    """Per-worker re-plans swapped into the async loop on epoch bounds."""
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.models.profiles import layer_profiles
+        from repro_torch.ps import DynamicAsyncPSTrainer
+        self.trainer = DynamicAsyncPSTrainer(
+            init_layers=self._initial_layers(), loss_fn=self._loss_fn,
+            optimizer=config.build_optimizer(),
+            topology=_build_topology(config, device),
+            pushes_per_epoch=config.schedule.reschedule_every,
+            staleness=config.execution.staleness or 0,
+            throttle=config.execution.throttle,
+            aggregate=config.execution.aggregate,
+            strategy=config.schedule.strategy,
+            profiles=layer_profiles(arch, self.shape),
+            compressor=config.compression.build(),
+            async_planning=config.schedule.async_planning,
+            plan_cache_size=config.schedule.plan_cache_size)
+
+    @property
+    def events(self):
+        return tuple(self.trainer.events) + tuple(self._eval_events)
+
+    @property
+    def _server(self):
+        return self.trainer.trainer.server
+
+    def _run_pushes(self, num_pushes, wfn):
+        return self.trainer.run_pushes(num_pushes, wfn)
+
+    def timeline(self):
+        return self.trainer.trainer.log

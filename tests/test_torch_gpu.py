@@ -497,3 +497,78 @@ def test_block_waits_for_a_tuple(cuda):
         done.record()
         _block(make(y))
         assert done.query()
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adamw"])
+def test_pinned_pull_keeps_its_bytes_on_the_card(cuda, opt):
+    """The server's in-place optimizer on CUDA buffers: a pull pinned at
+    version v returns v's bytes after later commits (k = 1)."""
+    from repro_torch.dist.collectives import flatten_tree, make_flat_spec
+    from repro_torch.optim import adamw, sgd
+    from repro_torch.ps import PSServer, PSTopology
+    trees = [{"w": torch.arange(700, dtype=torch.float32, device=cuda) + l}
+             for l in range(3)]
+    specs = [make_flat_spec(t, 1) for t in trees]
+    server = PSServer(specs, PSTopology.uniform(2, 2),
+                      sgd(0.5) if opt == "sgd" else adamw(0.1),
+                      [flatten_tree(t, s) for t, s in zip(trees, specs)],
+                      staleness_bound=1)
+    for v in range(3):
+        before = [f.clone() for f in server.flats()]
+        server.push_bucket(0, v, (2, 1, 0), {
+            l: torch.full((specs[l].padded,), 1.0 + v, device=cuda)
+            for l in range(3)})
+        _, pinned = server.pull_bucket((0, 1, 2), version=v)
+        _, head = server.pull_bucket((0, 1, 2))
+        for l in range(3):
+            assert pinned[l].is_cuda and torch.equal(pinned[l], before[l])
+            assert not torch.equal(head[l], before[l])
+    assert server.snapshot_versions == (2, 3)
+
+
+def _cnn_async(device, throttle):
+    """3 workers, SGD 0.05, k = 1 over the small CNN from one seeded CPU
+    draw, on ``device``."""
+    from repro_torch.core import plan_from_decision
+    from repro_torch.models.cnn import small_cnn_init, small_cnn_loss
+    from repro_torch.optim import sgd
+    from repro_torch.ps import AsyncPSTrainer, PSTopology, asymmetric_link
+    from repro_torch import tree
+    params = tree.tree_map(lambda x: x.to(device), small_cnn_init(
+        torch.Generator().manual_seed(0)))
+    plan = plan_from_decision(((1, 3), (4, 5)), ((4, 5), (1, 3)), 5)
+    topo = PSTopology(num_servers=2, links=tuple(
+        asymmetric_link(10e9, 1e9) for _ in range(3)),
+        worker_flops=(1e10,) * 3)
+    return AsyncPSTrainer(
+        init_layers=params["layers"],
+        loss_fn=lambda ls, b: small_cnn_loss({"layers": ls}, b["images"],
+                                             b["labels"]),
+        optimizer=sgd(0.05), topology=topo, plan=plan, staleness=1,
+        throttle=throttle)
+
+
+@pytest.mark.parametrize("throttle", ["reject", "wait"])
+def test_async_cnn_on_the_card_matches_the_cpu(cuda, throttle):
+    """The same event sequence exactly, the losses to the card-against-CPU
+    tolerance (cuDNN in its deterministic mode)."""
+    from repro_torch.data import SyntheticCIFAR
+    batch = SyntheticCIFAR(8, seed=7).batch(0)
+    logs = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for device in ("cpu", cuda):
+            logs.append(_cnn_async(device, throttle).run(
+                12, lambda w, i: batch))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cpu, card = logs
+    trace = [[(e.worker, e.sim_time, e.version, e.result.accepted,
+               e.result.staleness, e.retries, e.wait_s) for e in log.events]
+             for log in logs]
+    assert trace[0] == trace[1]
+    gap = np.max(np.abs(np.subtract(card.losses, cpu.losses)) /
+                 np.abs(cpu.losses))
+    print(f"async CNN/{throttle}: rel gap {gap:.3g}")
+    assert gap <= CARD_CPU_RTOL

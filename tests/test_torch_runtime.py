@@ -169,11 +169,21 @@ def test_launcher_runs_on_cpu_and_dumps_config(capsys):
 
 
 def test_unported_runtimes_raise():
-    for name in ("ps_async", "dynamic_ps_async", "fleet_async", "pipeline"):
+    for name in ("fleet_async", "pipeline"):
         cfg = RuntimeConfig.load(os.path.join(
             CONFIGS, f"{name}.json"))
         with pytest.raises(ValueError, match="not ported"):
             build_runtime(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["ps_async", "ps_async_int8",
+                                  "dynamic_ps_async"])
+def test_async_runtimes_build(name):
+    rt = build_runtime(RuntimeConfig.load(os.path.join(
+        CONFIGS, f"{name}.json")), device="cpu")
+    assert rt.timeline() is None and rt.ledger["num_pushes"] == 0
+    loop = getattr(rt.trainer, "trainer", rt.trainer)     # the async loop
+    assert loop.computations == 0 and loop.log is None
 
 
 @pytest.mark.parametrize("name", ["dynamic", "dynamic_ps"])
