@@ -38,7 +38,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    blocks through the ``rglru_scan`` kernel and its fused backward
    ``rglru_scan_bwd``, 8 local-attention blocks
    through flash attention at head dim 256), launches asserted against the
-   plan and the layer kinds; then 3 steps with the scan replaced by
+   plan and the layer kinds; then 2 steps with the scan replaced by
    its plain loop (autograd through it), whose losses must equal bitwise;
 7. ``async``: the bounded-staleness asynchronous PS.  The paper's small
    CNN (3 workers, SGD 0.05, 12 accepted pushes at k = 1) under ``reject``
@@ -48,22 +48,40 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``ps_async.json``'s schedule (2 workers, 2 servers, 10 / 1 Gbps, k = 1,
    ``wait``, AdamW): ``ps-async`` plain at 40 layers (events, losses,
    ledger against the segment formula, seconds a push, peak memory, flash
-   launches per gradient computation; again with the plain attention,
-   the same events and the losses to a tolerance), ``dynamic-ps-async``
+   launches per gradient computation; its first 4 pushes again with the
+   plain attention, the same events and the losses to a tolerance),
+   ``dynamic-ps-async``
    under ``dynamic_ps_async.json``'s schedule (re-plans against the
    port's own ``core``; the same commit order and losses as
    ``ps-async``) and ``ps-async`` with int8 pushes at 20 layers (launches
    per layer and push, the push ratio against its formula, the plain
    round trip's losses bitwise);
-8. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
+8. ``fleet``: the elastic fleet (``fleet-async``) at granite-3-2b's full
+   width under ``fleet_async.json``'s topology (3 workers, 2 servers, 10 /
+   1 Gbps, k = 1, ``wait``, AdamW, 2 workers a shard) with its schedule
+   scaled to one worker iteration T: a join at 1.5 T, a crash of a worker
+   in flight at 2.5 T and a leave at 3.5 T that re-shards from 2 servers
+   to 1; 6 accepted pushes.  The membership, re-plan and commit streams,
+   push histories and plans equal the port's ``FleetTrainer`` on the CPU
+   over toy layers with the full-width profiles; flash launches, the
+   ledger against the segment formula (the crash's partial walk
+   included), the migrated bytes against the shard formula, pulls pinned
+   at the retained snapshot bitwise across the reshard, seconds a push
+   and peak memory against the reckoning; then a resume witness at 4
+   layers of full width (``save_state`` mid-run, a fresh runtime restored
+   from it gives the rest of the run bitwise);
+9. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
    / ``dynamic.json`` / ``dynamic_ps.json`` / ``ps_async.json`` /
-   ``ps_async_int8.json`` / ``dynamic_ps_async.json`` smoke configs through
-   the launcher (``ps.json`` plain, int8 and top-k); zero against local to
-   fp32 tolerance, zero bitwise across the four scheduling strategies,
-   and plain ps bitwise equal to zero; then ``ps.json`` plain, int8 and
-   top-k, ``dynamic.json``, ``dynamic_ps.json``, the three async configs
-   and a reduced recurrentgemma-2b ``zero`` run, on the card against the
-   port on the CPU from one initial state, to a stated tolerance.
+   ``ps_async_int8.json`` / ``dynamic_ps_async.json`` / ``fleet_async.json``
+   smoke configs through the launcher (``ps.json`` plain, int8 and top-k);
+   zero against local to fp32 tolerance, zero bitwise across the four
+   scheduling strategies, and plain ps bitwise equal to zero; then
+   ``ps.json`` plain, int8 and top-k, ``dynamic.json``, ``dynamic_ps.json``,
+   the three async configs, ``fleet_async.json`` plain and int8 (its
+   events and push histories equal, the int8 launches a layer of each
+   accepted push and partial walk) and a reduced recurrentgemma-2b
+   ``zero`` run, on the card against the port on the CPU from one initial
+   state, to a stated tolerance.
 
 The last lines are ``nvidia-smi``'s line, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
@@ -105,6 +123,7 @@ MAIN = dict(runtime="zero", arch="granite-3-2b", reduced=False, batch=2,
 PS = dict(MAIN, runtime="ps")              # + ps.json's topology (default)
 HYBRID = dict(MAIN, arch="recurrentgemma-2b")
 HYBRID_STEPS = 4          # past the loss's rise at step 3 (ROADMAP queue 3)
+HYBRID_WITNESS_STEPS = 2  # the plain-scan witness: one step past an update
 DYNAMIC_STEPS = 4         # a re-plan every 2 steps: the swap at step 2
 # the plans the 10 -> 1 Gbps shift gives at full width (pull, push bucket
 # sizes), computed host-only with the reference's core
@@ -117,9 +136,18 @@ HYBRID_CARD_CPU_RTOL = 2e-6    # ps.json's bound; 7.8e-8 measured on an H100
 CNN_PUSHES = 12           # the reference's async CNN tests
 FIG10_PUSHES = 8
 ASYNC_PUSHES = 6          # full-width async runs, accepted pushes each
+ASYNC_WITNESS_PUSHES = 4  # the plain-attention witness: its first pushes
 ASYNC_INT8_PUSHES = 4
 ASYNC_INT8_LAYERS = 20    # int8 adds a residual per worker: 40 do not fit
 ASYNC_CONFIGS = ("ps_async", "ps_async_int8", "dynamic_ps_async")
+FLEET_PUSHES = 6          # accepted pushes of the full-width fleet run
+# the fleet's schedule in units of one worker iteration T: a join after the
+# first commits, a crash (a fail's default mode) while its worker is in
+# flight, a leave that takes the fleet to 2 workers and the shards 2 -> 1
+FLEET_EVENTS = ((1.5, "join", 3), (2.5, "fail", 1), (3.5, "leave", 2))
+FLEET_RESUME_LAYERS = 4   # 40 would write ~28 GB of server state to disk
+FLEET_RESUME_PUSHES = 3   # pushes before and after the checkpoint
+ACTIVATION_GIB = 1.2      # remat's activations, measured in phase async
 TOPK_FRACTION = 0.01
 PS_SCHEMES = (("int8", ("compress_quantize", "compress_dequantize")),
               ("topk", ("compress_sparsify", "compress_densify")))
@@ -1374,8 +1402,8 @@ def phase_dynamic(main: dict, ps_losses: dict) -> dict:
 
 def phase_hybrid(profile: bool) -> dict:
     """HYBRID_STEPS ZeRO steps of full-width recurrentgemma-2b (the loss
-    printed past its rise at step 3), then the first STEPS with the scan
-    replaced by its plain loop."""
+    printed past its rise at step 3), then the first HYBRID_WITNESS_STEPS
+    with the scan replaced by its plain loop."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.models import ssm
@@ -1438,7 +1466,7 @@ def phase_hybrid(profile: bool) -> dict:
     try:
         rt = build_runtime(config)
         reset_launch_counts()
-        plain = rt.fit(STEPS)
+        plain = rt.fit(HYBRID_WITNESS_STEPS)
         ran = {k: launch_counts()[k] for k in ("rglru_scan", "rglru_scan_bwd")}
     finally:
         ssm.rglru_scan = kernel_scan
@@ -1446,13 +1474,14 @@ def phase_hybrid(profile: bool) -> dict:
     free_cuda()
     if any(ran.values()):
         raise AssertionError(f"the plain run launched the scan kernels {ran}")
-    if plain != losses[:STEPS]:
+    if plain != losses[:HYBRID_WITNESS_STEPS]:
         gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
-        raise AssertionError(f"hybrid: kernel path losses {losses[:STEPS]} "
+        raise AssertionError(f"hybrid: kernel path losses "
+                             f"{losses[:HYBRID_WITNESS_STEPS]} "
                              f"!= plain scan {plain} (largest relative gap "
                              f"{gap:.3g})")
     say("hybrid", f"the plain scan (ref.py, autograd through the loop) gives "
-                  f"the same first {STEPS} losses bitwise")
+                  f"the same first {HYBRID_WITNESS_STEPS} losses bitwise")
     return counts
 
 
@@ -1582,20 +1611,22 @@ def async_run(config, pushes: int, model=None, hook=None) -> dict:
     losses, secs = timed_steps(rt, pushes)
     counts = launch_counts()
     loop = getattr(rt.trainer, "trainer", rt.trainer)
+    attempts = dict(loop._loop.attempts)
     out = dict(rt=rt, loop=loop, losses=losses, secs=secs, counts=counts,
                built=built, peak=torch.cuda.max_memory_allocated(),
-               events=event_rows(loop.log), computations=loop.computations,
-               attempts=dict(loop._loop.attempts))
+               events=event_rows(loop.log),
+               computations=sum(attempts.values()), attempts=attempts)
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{config.runtime}: non-finite losses {losses}")
     return out
 
 
 def witness_flash(cfg, kernel_run, arch) -> None:
-    """The same pushes from the same seed with the plain attention in
-    place of the flash kernel: the same events; the computations pinned at
-    version 0 (the same weights in both runs) to CARD_CPU_RTOL, the later
-    ones printed (AdamW's first, sign-like steps carry the runs apart).
+    """The first ASYNC_WITNESS_PUSHES pushes from the same seed with the
+    plain attention in place of the flash kernel: the same events; the
+    computations pinned at version 0 (the same weights in both runs) to
+    CARD_CPU_RTOL, the later ones printed (AdamW's first, sign-like steps
+    carry the runs apart).
     Each of the witness's computations also takes its loss through flash
     on its own weights and batch (no_grad): flash against the plain
     attention on the same inputs, every pair to CARD_CPU_RTOL."""
@@ -1629,10 +1660,10 @@ def witness_flash(cfg, kernel_run, arch) -> None:
 
     attention.flash_attention = switch
     try:
-        witness = async_run(cfg, ASYNC_PUSHES, hook=hook)
+        witness = async_run(cfg, ASYNC_WITNESS_PUSHES, hook=hook)
     finally:
         attention.flash_attention = kernel
-    if witness["events"] != kernel_run["events"]:
+    if witness["events"] != kernel_run["events"][:ASYNC_WITNESS_PUSHES]:
         raise AssertionError(f"witness events {witness['events']} != "
                              f"{kernel_run['events']}")
     flash_launches = witness["counts"]["flash_attention_fwd"]
@@ -1812,6 +1843,295 @@ def phase_async(profile: bool) -> None:
                  f"place) gives the same {ASYNC_INT8_PUSHES} losses bitwise")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the elastic fleet at full width
+# ---------------------------------------------------------------------------
+
+
+def fleet_config(arch):
+    """``fleet_async.json``'s topology, execution, optimizer and
+    ``workers_per_shard`` at ``arch``'s full width (batch 2 x seq 1024),
+    its schedule scaled to T, one worker iteration of ``arch`` under the
+    initial fleet's plan.  Returns (config, T)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import schedule
+    from repro_torch.core.costmodel import iteration_time
+    from repro_torch.models.profiles import layer_profiles
+    from repro_torch.runtime import RuntimeConfig
+    from repro_torch.runtime.config import FleetEventConfig
+    smoke = RuntimeConfig.load(str(ROOT / "examples" / "runtime_configs" /
+                                   "fleet_async.json"))
+    shape = InputShape("runtime", MAIN["seq"], MAIN["batch"], "train")
+    costs = smoke.schedule.topology.build(default_workers=1).topology_costs(
+        layer_profiles(arch, shape))
+    decision = schedule(costs.workers[0], smoke.schedule.strategy)
+    T = iteration_time(costs.workers[0], *decision)
+    events = tuple(FleetEventConfig(time=at * T, kind=kind, worker=w)
+                   for at, kind, w in FLEET_EVENTS)
+    return dataclasses.replace(
+        smoke, reduced=False, batch=MAIN["batch"], seq=MAIN["seq"],
+        fleet=dataclasses.replace(smoke.fleet, events=events)), T
+
+
+def fleet_on_the_cpu(config, arch, pushes: int):
+    """The port's ``FleetTrainer`` on the CPU over toy layers (4 floats a
+    sched layer) with ``config``'s specs, schedule and detectors and
+    ``arch``'s full-width profiles: its event stream is a pure function of
+    those, so it is the card run's."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.fleet import FleetTrainer, WorkerSpec
+    from repro_torch.models.profiles import layer_profiles
+    profiles = layer_profiles(arch, InputShape("runtime", config.seq,
+                                               config.batch, "train"))
+    topo = config.schedule.topology.build(default_workers=1)
+    specs = {w: WorkerSpec(link.down.bandwidth_bps, link.up.bandwidth_bps,
+                           topo.worker_flops[w])
+             for w, link in enumerate(topo.links)}
+    fleet = config.fleet
+    tr = FleetTrainer(
+        init_layers=[{"w": torch.full((4,), 0.1)} for _ in profiles],
+        loss_fn=lambda ls, b: sum(torch.sum(x["w"] ** 2) for x in ls),
+        optimizer=config.build_optimizer(), workers=specs,
+        schedule=fleet.build_schedule(tuple(specs)),
+        num_servers=topo.num_servers,
+        workers_per_shard=fleet.workers_per_shard,
+        staleness=config.execution.staleness or 0,
+        throttle=config.execution.throttle,
+        strategy=config.schedule.strategy, profiles=profiles,
+        drift_detector=fleet.build_detector(),
+        stall_factor=fleet.stall_factor, check_interval=fleet.check_interval,
+        async_planning=config.schedule.async_planning,
+        plan_cache_size=config.schedule.plan_cache_size)
+    tr.run(pushes, lambda w, i: {})
+    return tr
+
+
+def fleet_stream(tr) -> dict:
+    """A fleet run's event streams without the wall-clock fields and the
+    migrated bytes (toy layers move fewer): membership changes, re-plans,
+    commits, push histories, plans and computations per worker."""
+    return dict(
+        membership=[dataclasses.asdict(e) for e in tr.membership_events],
+        replans=[(e.sim_time, e.at_push, e.reason, e.worker, e.num_workers,
+                  e.num_servers, e.plan_changed, e.resharded)
+                 for e in tr.replan_events],
+        commits=[(e.worker, e.sim_time, e.version, e.result.staleness,
+                  e.result.accepted, e.wait_s) for e in tr.log.events],
+        history={w: tuple(((p.forward, p.backward), n, x)
+                          for p, n, x in h)
+                 for w, h in tr.push_history.items()},
+        plans={w: (p.forward, p.backward) for w, p in tr.plans.items()},
+        attempts=dict(tr._loop.attempts))
+
+
+def history_runs(tr) -> dict:
+    """{worker: [(whole pushes, partial segments) of each plan's run]}."""
+    return {w: [(n, x) for _, n, x in h] for w, h in tr.push_history.items()}
+
+
+def check_fleet_ledger(run) -> None:
+    """Pulled bytes = computations x the model's bytes; pushed bytes =
+    each push-history run's whole pushes plus its partial segments, by the
+    FlatSpec formula per segment."""
+    from repro_torch.dist.collectives import bucket_bytes
+    tr = run["loop"]
+    led, specs = tr.server.ledger, tr.specs
+    whole = bucket_bytes(specs, range(len(specs)))
+    for w, hist in tr.push_history.items():
+        push = sum(n * whole + sum(bucket_bytes(specs, b)
+                                   for b in p.backward[:x])
+                   for p, n, x in hist)
+        if led.pushed_bytes.get(w, 0) != push:
+            raise AssertionError(f"worker {w}: pushed "
+                                 f"{led.pushed_bytes.get(w, 0)} != the "
+                                 f"formula's {push} over {hist}")
+    for w, n in run["attempts"].items():
+        if led.pulled_bytes.get(w, 0) != n * whole:
+            raise AssertionError(f"worker {w}: pulled "
+                                 f"{led.pulled_bytes.get(w, 0)} != {n} x "
+                                 f"{whole}")
+
+
+def migration_formula(tr) -> tuple:
+    """(bytes, reshards) the re-plans' shard counts imply: each layer
+    whose owning shard changed ships its parameters and its AdamW
+    moments (3 f32 copies)."""
+    from repro_torch.ps import PSTopology
+    L, moved_bytes, count = len(tr.specs), 0, 0
+    shards = tr.replan_events[0].num_servers
+    for e in tr.replan_events[1:]:
+        if e.num_servers != shards:
+            old, new = (PSTopology.uniform(n, 1) for n in (shards,
+                                                          e.num_servers))
+            moved_bytes += 3 * sum(
+                tr.specs[l].total * 4 for l in range(L)
+                if old.shard_of_layer(l, L) != new.shard_of_layer(l, L))
+            count += 1
+        shards = e.num_servers
+    return moved_bytes, count
+
+
+def watch_reshard(rt, seen: list) -> None:
+    """Wrap the runtime's server's ``reshard``: before it, clone every
+    retained snapshot below the head on the card; after it, pull each
+    pinned version again and hold it to the clone bitwise.  The clones
+    take the place of the departing worker's payload, freed just before
+    the re-plan, so the run's peak does not move."""
+    server = rt.trainer.server
+    real = server.reshard
+
+    def reshard(topology):
+        bucket = tuple(range(server.num_layers))
+        pins = [v for v in server.snapshot_versions if v < server.version]
+        before = {v: {l: f.clone() for l, f in
+                      server.pull_bucket(bucket, version=v)[1].items()}
+                  for v in pins}
+        info = real(topology)
+        for v in pins:
+            _, after = server.pull_bucket(bucket, version=v)
+            for l in bucket:
+                assert_bitwise(after[l], before[v].pop(l),
+                               f"version {v} layer {l} across the reshard")
+        seen.append((pins, info))
+        return info
+    server.reshard = reshard
+
+
+def fleet_resume_witness(arch) -> None:
+    """At full width and FLEET_RESUME_LAYERS layers, under the same
+    schedule scaled to that model's T: run FLEET_RESUME_PUSHES pushes,
+    ``save_state`` (the server tree and ``.loop``), run as many more; a
+    fresh runtime restored from the checkpoint gives the same log, events,
+    ledger and parameters bitwise."""
+    import tempfile
+    from repro_torch.runtime import build_runtime
+    cut = dataclasses.replace(arch, num_layers=FLEET_RESUME_LAYERS)
+    cfg, T = fleet_config(cut)
+    n = FLEET_RESUME_PUSHES
+    (ROOT / "build").mkdir(exist_ok=True)               # ignored by git
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "fleet.npz")
+        free_cuda()
+        rt = build_runtime(cfg, cut)
+        rt.fit(n)
+        rt.save_state(path)
+        later = rt.fit(n)
+        full = fleet_stream(rt.trainer)
+        losses = rt.trainer.log.losses
+        flats = [f.cpu() for f in rt.trainer.server.flats()]
+        ledger = dataclasses.asdict(rt.trainer.server.ledger)
+        del rt
+        free_cuda()
+        resumed = build_runtime(cfg, cut)
+        resumed.restore_state(path)
+        again = resumed.fit(n)
+        got = fleet_stream(resumed.trainer)
+        same_flats = all(torch.equal(a.cpu(), b) for a, b in
+                         zip(resumed.trainer.server.flats(), flats))
+        same = (got == full and again == later and same_flats and
+                resumed.trainer.log.losses == losses and
+                dataclasses.asdict(resumed.trainer.server.ledger) == ledger)
+        kinds = [e["kind"] for e in got["membership"]]
+        del resumed
+        free_cuda()
+    if not same:
+        raise AssertionError(f"fleet resume: {again} != {later}, or the "
+                             f"events, ledger or parameters differ")
+    say("fleet", f"resume witness at {FLEET_RESUME_LAYERS} layers of full "
+                 f"width (T = {T:.3f} simulated s): {n} pushes, save_state, "
+                 f"{n} more; a fresh runtime restored from the checkpoint "
+                 f"gives the log, the membership events {kinds}, the "
+                 f"re-plans, the ledger and the parameters bitwise "
+                 f"(losses {later})")
+
+
+def phase_fleet(smi: str) -> None:
+    """``fleet-async`` at granite-3-2b's full width under a join, a crash
+    in flight and a leave that re-shards; then the resume witness."""
+    from repro_torch.configs import get_config
+    arch = get_config(MAIN["arch"])
+    cfg, T = fleet_config(arch)
+    t0 = time.perf_counter()
+    cpu = fleet_on_the_cpu(cfg, arch, FLEET_PUSHES)
+    cpu_s = time.perf_counter() - t0
+    seen = []
+    run = async_run(cfg, FLEET_PUSHES,
+                    hook=lambda rt: watch_reshard(rt, seen))
+    tr = run["loop"]
+    stream = fleet_stream(tr)
+    if stream != fleet_stream(cpu):
+        raise AssertionError(f"fleet: the card's stream {stream} != the "
+                             f"CPU's {fleet_stream(cpu)}")
+    for e in tr.membership_events:
+        say("fleet", f"t = {e.sim_time / T:.2f} T: {e.kind} worker "
+                     f"{e.worker} (fleet size {e.fleet_size})")
+    for e in tr.replan_events:
+        say("fleet", f"t = {e.sim_time / T:.2f} T @push {e.at_push}: re-plan "
+                     f"({e.reason}, worker {e.worker}): {e.num_workers} "
+                     f"workers, {e.num_servers} shards, "
+                     f"{'re-segmented' if e.plan_changed else 'unchanged'}"
+                     f"{', resharded' if e.resharded else ''}, "
+                     f"{e.migrated_bytes} bytes moved; sched "
+                     f"{e.scheduling_seconds * 1e3:.3f} ms "
+                     f"(hidden={e.overhead_hidden})")
+    say("fleet", f"{arch.name} full width, {arch.num_layers} layers; T = "
+                 f"{T:.1f} simulated s; plan {sizes(tr.plans[0])}; events, "
+                 f"re-plans, commits, push histories, plans and "
+                 f"computations {run['attempts']} == the port's "
+                 f"FleetTrainer on the CPU over {len(tr.specs)} toy layers "
+                 f"with the full-width profiles ({cpu_s:.1f} s)")
+    log = tr.log
+    if log.max_staleness > cfg.execution.staleness or \
+            len(log.accepted) != FLEET_PUSHES:
+        raise AssertionError(f"fleet: {len(log.accepted)} accepted, max "
+                             f"staleness {log.max_staleness}")
+    check_async_launches(run, arch)
+    check_fleet_ledger(run)
+    kinds = {e.kind for e in tr.membership_events}
+    if kinds != {"join", "crash", "leave"} or \
+            not any(x for h in tr.push_history.values() for _, _, x in h):
+        raise AssertionError(f"fleet: membership {kinds}, history "
+                             f"{tr.push_history}: no crash in flight")
+    moved, reshards = migration_formula(tr)
+    led = tr.server.ledger
+    if (led.migrated_bytes, led.num_reshards) != (moved, reshards) or \
+            reshards != 1 or sum(e.migrated_bytes
+                                 for e in tr.replan_events) != moved:
+        raise AssertionError(f"fleet: migrated {led.migrated_bytes} in "
+                             f"{led.num_reshards} != the formula's {moved} "
+                             f"in {reshards}")
+    if len(seen) != 1 or not seen[0][0]:
+        raise AssertionError(f"fleet: the reshard pinned {seen}")
+    say("fleet", f"max staleness {log.max_staleness}; launches "
+                 f"{run['counts']} (flash = 2 x {arch.num_layers} x "
+                 f"{run['computations']} computations, the crash's and the "
+                 f"leave's included); ledger per worker == the segment "
+                 f"formula over the push histories "
+                 f"{history_runs(tr)}")
+    say("fleet", f"reshard 2 -> 1 shards: {led.migrated_bytes} bytes "
+                 f"migrated in {led.num_reshards} == the formula; pulls "
+                 f"pinned at versions {seen[0][0]} bitwise across it")
+    secs = run["secs"]
+    steady = sum(secs[1:]) / len(secs[1:])
+    copy = sum(s.total * 4 for s in tr.specs) / 2**30
+    k = cfg.execution.staleness
+    reckoned = (3 + k + k + 1) * copy + ACTIVATION_GIB
+    peak = run["peak"] / 2**30
+    say("fleet", f"losses {run['losses']}")
+    say("fleet", f"push seconds {[round(x, 4) for x in secs]}: first "
+                 f"{secs[0]:.3f} s, steady {steady * 1e3:.1f} ms a push "
+                 f"(pushes 2-{len(secs)}); built in {run['built']:.1f} s; "
+                 f"peak {peak:.2f} GiB against the reckoning {reckoned:.2f} "
+                 f"(3 + k server copies, k + 1 payloads of {copy:.2f} GiB, "
+                 f"~{ACTIVATION_GIB} GiB activations); {smi}")
+    if not peak < reckoned + copy / 2:
+        raise AssertionError(f"fleet: peak {peak:.2f} GiB: a departed "
+                             f"worker's payload outlived its slot")
+    del run, tr, cpu
+    free_cuda()
+    fleet_resume_witness(arch)
+
+
 def traced(fn) -> list:
     """``fn()`` under ``torch.profiler``, the card idle before and after
     the window so that it holds whole calls: the device rows of
@@ -1887,6 +2207,33 @@ def card_against_cpu(config, model=None) -> tuple:
     return gap, card, cpu
 
 
+def fleet_card_against_cpu(config) -> dict:
+    """``STEPS`` accepted pushes of a fleet config on the CPU and on the
+    card from one initial server state (the CPU runtime's ``state_dict``,
+    a host value the CPU run's commits leave alone), the card run's
+    launches counted: the streams, the losses, the largest relative gap
+    and the card's trainer."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import build_runtime
+    dist = torch.distributed
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    cpu_rt = build_runtime(config, device="cpu")          # a gloo group
+    state = cpu_rt.trainer.server.state_dict()
+    cpu = cpu_rt.fit(STEPS)
+    dist.destroy_process_group()
+    card_rt = build_runtime(config)                       # an NCCL group
+    card_rt.trainer.server.load_state_dict(state)
+    reset_launch_counts()
+    card = card_rt.fit(STEPS)
+    counts = launch_counts()
+    dist.destroy_process_group()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    return dict(card=card, cpu=cpu, gap=gap, counts=counts,
+                same=fleet_stream(card_rt.trainer) ==
+                fleet_stream(cpu_rt.trainer), trainer=card_rt.trainer)
+
+
 def zero_like(path) -> list:
     """STEPS losses of the ``zero`` runtime on a dynamic smoke config's
     model, data and seed: a plan changes no bit, so they are the dynamic
@@ -1924,7 +2271,7 @@ def phase_configs() -> None:
                for name in ("dynamic", "dynamic_ps")}
     asyncs = {name: train_main(["--config", str(cfgs / f"{name}.json"),
                                 "--steps", str(STEPS), "--log-every", "0"])
-              for name in ASYNC_CONFIGS}
+              for name in (*ASYNC_CONFIGS, "fleet_async")}
     counts = launch_counts()
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel never ran in the configs: {counts}")
@@ -1964,6 +2311,8 @@ def phase_configs() -> None:
     for name, losses in asyncs.items():
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"{name}.json: non-finite losses {losses}")
+        if name == "fleet_async":
+            continue
         gap, card, cpu = card_against_cpu(RuntimeConfig.load(
             str(cfgs / f"{name}.json")))
         if not gap <= CARD_CPU_RTOL:
@@ -1972,6 +2321,27 @@ def phase_configs() -> None:
         say("configs", f"{name}.json through the launcher {losses}; from one "
                        f"initial state: card {card}, CPU {cpu}; rel gap "
                        f"{gap:.3g} (rtol {CARD_CPU_RTOL})")
+    fleet = RuntimeConfig.load(str(cfgs / "fleet_async.json"))
+    for scheme, names in (("none", ()), PS_SCHEMES[0]):
+        run = fleet_card_against_cpu(dataclasses.replace(
+            fleet, compression=CompressionConfig(scheme)))
+        tr = run.pop("trainer")
+        L = len(tr.specs)
+        # a kernel a layer of each accepted push and of each partial walk
+        want = sum(n * L + sum(len(b) for b in p.backward[:x])
+                   for h in tr.push_history.values() for p, n, x in h)
+        if not run["same"] or not run["gap"] <= CARD_CPU_RTOL or \
+                any(run["counts"][k] != want for k in names):
+            raise AssertionError(f"fleet_async.json/{scheme}: {run}, want "
+                                 f"{want} launches of {names}")
+        say("configs", f"fleet_async.json/{scheme} from one initial state: "
+                       f"the CPU's events, re-plans and push histories "
+                       f"{history_runs(tr)}; "
+                       f"card {run['card']}, CPU {run['cpu']}; rel gap "
+                       f"{run['gap']:.3g} (rtol {CARD_CPU_RTOL}); launches "
+                       f"{ {k: run['counts'][k] for k in names} } == "
+                       f"{L} layers x accepted pushes + the crash's partial "
+                       f"walk = {want}")
     if not all(math.isfinite(x) for x in hybrid):
         raise AssertionError(f"non-finite reduced {HYBRID['arch']} losses "
                              f"{hybrid}")
@@ -2038,6 +2408,7 @@ def main(argv=None) -> None:
     timed("dynamic", phase_dynamic, main_run, ps_losses)
     hybrid_counts = timed("hybrid", phase_hybrid, args.profile)
     timed("async", phase_async, args.profile)
+    timed("fleet", phase_fleet, smi)
     timed("configs", phase_configs)
     say("time", f"phase wall seconds {walls}; "
                 f"{time.perf_counter() - start:.1f} s since the start")

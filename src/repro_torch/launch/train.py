@@ -2,13 +2,17 @@
 
 ``--config runtime.json`` builds the runtime from a checked-in
 :class:`RuntimeConfig` (``examples/runtime_configs/{local,zero,ps,dynamic,
-dynamic_ps,ps_async,ps_async_int8,dynamic_ps_async}.json``); otherwise the
-flags below map onto one, as the reference's launcher maps them
-(``--dump-config`` prints it).  ``--staleness k`` switches ``ps`` /
+dynamic_ps,ps_async,ps_async_int8,dynamic_ps_async,fleet_async}.json``);
+otherwise the flags below map onto one, as the reference's launcher maps
+them (``--dump-config`` prints it).  ``--staleness k`` switches ``ps`` /
 ``dynamic-ps`` to their asynchronous form (``ps-async`` /
 ``dynamic-ps-async``: the bounded-staleness event loop, ``--throttle
 reject|wait``, ``--aggregate`` for BSP rounds, ``--ps-workers`` logical
-workers); their unit of progress is one accepted push.  With
+workers); ``fleet-async`` runs that loop over an elastic fleet
+(``--fleet-schedule events.json`` scripts joins, leaves, failures and
+drift as a JSON list of fleet event dicts; ``--workers-per-shard`` lets
+the shard count track the fleet).  The async runtimes' unit of progress
+is one accepted push.  With
 ``--config``, ``--compress`` (and ``--topk-fraction`` /
 ``--no-error-feedback`` with it) replaces the config's compression block,
 so one checked-in PS config runs plain, int8 or top-k.  The run goes to the
@@ -28,24 +32,29 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \
         --reduced --runtime ps --staleness 1 --throttle wait \
         --ps-workers 2 --steps 6 --batch 2 --seq 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --config examples/runtime_configs/fleet_async.json --steps 6 \
+        --device cpu
 
 The dynamic runtimes re-plan every ``--steps-per-epoch`` steps and print
 one line per scheduling pass (``re-segmented`` / ``unchanged``, the
 plan's collective counts, the DP's wall time against the Δt + gt¹ idle
-window).
+window); the fleet prints one line per re-plan and per membership
+change.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 from repro_torch.configs import ARCHITECTURES
 from repro_torch.runtime import (CompressionConfig, ExecutionConfig,
-                                 MeasureConfig, NetworkConfig, RuntimeConfig,
-                                 ScheduleConfig, TopologyConfig,
-                                 build_runtime)
+                                 FleetConfig, MeasureConfig, NetworkConfig,
+                                 RuntimeConfig, ScheduleConfig,
+                                 TopologyConfig, build_runtime)
 
 
 def _compression(args) -> CompressionConfig:
@@ -82,8 +91,20 @@ def config_from_flags(args) -> RuntimeConfig:
             down_gbps=args.down_gbps, up_gbps=args.up_gbps,
             worker_flops=args.worker_flops,
             up_shift_factor=up_shift, shift_epoch=args.shift_epoch)
+
+    fleet = None
+    if args.fleet_schedule is not None and name != "fleet-async":
+        raise SystemExit("--fleet-schedule scripts elastic membership; it "
+                         "needs --runtime fleet-async")
+    if name == "fleet-async":
+        events = ()
+        if args.fleet_schedule is not None:
+            with open(args.fleet_schedule) as fh:
+                events = tuple(json.load(fh))
+        fleet = FleetConfig(events=events,
+                            workers_per_shard=args.workers_per_shard)
     return RuntimeConfig(
-        runtime=name, arch=args.arch, reduced=args.reduced,
+        runtime=name, arch=args.arch, reduced=args.reduced, fleet=fleet,
         batch=args.batch, seq=args.seq, optimizer=args.optimizer, lr=args.lr,
         schedule=ScheduleConfig(
             strategy=args.strategy, reschedule_every=args.steps_per_epoch,
@@ -104,7 +125,20 @@ def print_events(rt) -> None:
     cache's first uses and hits (sync) or its per-worker plans (async)."""
     tr = getattr(rt, "trainer", None)
     for e in rt.events:
-        if hasattr(e, "worker_plans"):           # async per-worker re-plan
+        if hasattr(e, "resharded"):              # fleet re-plan
+            reshard = f" resharded→{e.num_servers} shards " \
+                      f"({e.migrated_bytes / 1e6:.1f} MB moved)" \
+                      if e.resharded else ""
+            print(f"t={e.sim_time:8.3f} @push {e.at_push:4d}: re-plan "
+                  f"({e.reason}, worker {e.worker}) — {e.num_workers} "
+                  f"workers, "
+                  f"{'re-segmented' if e.plan_changed else 'unchanged'}"
+                  f"{reshard}  sched {e.scheduling_seconds * 1e3:.2f} ms "
+                  f"hidden={e.overhead_hidden}")
+        elif hasattr(e, "fleet_size"):           # fleet membership change
+            print(f"t={e.sim_time:8.3f}: {e.kind} worker {e.worker} "
+                  f"(fleet size {e.fleet_size})")
+        elif hasattr(e, "worker_plans"):         # async per-worker re-plan
             segs = [(len(p.forward), len(p.backward))
                     for p in e.worker_plans]
             print(f"epoch {e.epoch:3d} @push {e.at_push:4d}: per-worker "
@@ -147,7 +181,7 @@ def main(argv=None):
                     help="train the smoke-scale variant")
     ap.add_argument("--runtime",
                     choices=("local", "zero", "dynamic", "ps", "dynamic-ps",
-                             "ps-async", "dynamic-ps-async"),
+                             "ps-async", "dynamic-ps-async", "fleet-async"),
                     default="local",
                     help="registry name; --staleness k upgrades "
                          "ps/dynamic-ps to their -async form")
@@ -202,6 +236,13 @@ def main(argv=None):
     ap.add_argument("--up-shift-gbps", type=float, default=None,
                     help="dynamic-ps: degrade every uplink to this "
                          "bandwidth at --shift-epoch")
+    ap.add_argument("--fleet-schedule", default=None,
+                    help="fleet-async: JSON file holding a list of fleet "
+                         "event dicts (time/kind/worker/...) to script "
+                         "membership churn")
+    ap.add_argument("--workers-per-shard", type=int, default=0,
+                    help="fleet-async: let the shard count track the "
+                         "fleet size (0 keeps --ps-servers fixed)")
     ap.add_argument("--compress", choices=("none", "int8", "topk"),
                     default=None,
                     help="ps: compress gradient pushes (int8 per-tile "
@@ -246,6 +287,10 @@ def main(argv=None):
         spec += (f", k={config.execution.staleness or 0} "
                  f"({config.execution.throttle}"
                  f"{'+aggregate' if config.execution.aggregate else ''})")
+    if config.runtime == "fleet-async" and config.fleet is not None:
+        spec += f", fleet events {len(config.fleet.events)}" \
+            if config.fleet.events else \
+            f", fleet churn {config.fleet.churn}/s"
     print(f"{spec}, device {rt.device}")
     if config.runtime in ("zero", "ps"):
         plan = rt.plan

@@ -367,15 +367,33 @@ class PSServer:
     # checkpointing (``repro_torch.runtime`` save_state/restore_state)
     # ------------------------------------------------------------------
 
-    def state_dict(self) -> Dict[str, object]:
-        """Head parameters + optimizer state as a checkpointable tree (the
-        reference's keys).
+    def _state_tree(self, leaf) -> Dict[str, object]:
+        """The checkpoint tree (the reference's keys) with ``leaf`` applied
+        to every buffer."""
+        opt = self._opt_state
 
-        Pending segmented pushes and older snapshots are deliberately
-        excluded: checkpoint between event-loop runs, when the server is
-        quiescent."""
-        return {"flats": list(self._flats), "opt": self._opt_state,
+        def moments(ms):
+            return None if ms is None else [leaf(m) for m in ms]
+        return {"flats": [leaf(f) for f in self._flats],
+                "opt": opt._replace(step=leaf(opt.step), mu=moments(opt.mu),
+                                    nu=moments(opt.nu)),
                 "version": np.asarray(self.version, np.int64)}
+
+    def state_dict(self) -> Dict[str, object]:
+        """Head parameters + optimizer state as a checkpointable tree.
+
+        The tree is a value, as the reference's immutable arrays are: the
+        buffers are copied to host memory (no device memory is spent), so
+        later commits, which update the live buffers in place, leave it as
+        it was taken.  Pending segmented pushes and older snapshots are
+        deliberately excluded: checkpoint between event-loop runs, when
+        the server is quiescent."""
+        return self._state_tree(lambda x: x.detach().to("cpu", copy=True))
+
+    def state_template(self) -> Dict[str, object]:
+        """The :meth:`state_dict` tree with ``meta`` tensors in place of
+        the buffers: shapes and dtypes for a checkpoint load, no bytes."""
+        return self._state_tree(lambda x: torch.empty_like(x, device="meta"))
 
     def load_state_dict(self, state: Dict[str, object]) -> None:
         """Restore a :meth:`state_dict` (tensors or numpy arrays), copying

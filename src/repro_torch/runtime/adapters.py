@@ -14,7 +14,9 @@ optionally with compressed pushes), their run-time re-planning loops
 live; each step is accounted against the plan active in it), and the
 asynchronous ``ps-async`` and ``dynamic-ps-async`` (the bounded-staleness
 event loop over a versioned server, per-worker re-plans per topology
-epoch in the dynamic one).  Every runtime draws its initial weights from
+epoch in the dynamic one), and ``fleet-async`` (the same loop over an
+elastic fleet: churn-driven re-plans, server re-sharding, drift and stall
+detection).  Every runtime draws its initial weights from
 the same seeded generator, so a dynamic run starts from the static run's
 state.
 
@@ -35,8 +37,8 @@ import torch
 from repro_torch import tree
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.runtime.config import (NetworkConfig, RuntimeConfig,
-                                        TopologyConfig)
+from repro_torch.runtime.config import (FleetConfig, NetworkConfig,
+                                        RuntimeConfig, TopologyConfig)
 from repro_torch.runtime.registry import register_runtime
 
 # per-worker data streams of the async regimes stay disjoint by striding
@@ -587,7 +589,7 @@ class _AsyncBase(RuntimeAdapter):
         self._save_tree(path, {"server": self._server.state_dict()})
 
     def restore_state(self, path: str) -> None:
-        t = self._load_tree(path, {"server": self._server.state_dict()})
+        t = self._load_tree(path, {"server": self._server.state_template()})
         self._server.load_state_dict(t["server"])
         # in-flight gradients were computed against pre-restore weights
         # and pinned at pre-restore versions: committing them against the
@@ -674,3 +676,84 @@ class DynamicPSAsyncRuntime(_AsyncBase):
 
     def timeline(self):
         return self.trainer.trainer.log
+
+
+@register_runtime("fleet-async",
+                  description="elastic worker fleet on the deterministic "
+                              "event engine: churn-driven re-planning, "
+                              "server re-sharding, measured drift "
+                              "detection")
+class FleetRuntime(_AsyncBase):
+    """Elastic membership over the bounded-staleness event loop.
+
+    The initial fleet comes from the topology block (one
+    :class:`~repro_torch.fleet.WorkerSpec` per configured link); the fleet
+    block scripts or synthesizes membership churn and tunes the stall
+    and drift detectors.  Unlike the other async adapters, ``save_state``
+    also serializes the *event-loop* state (in-flight work, admission
+    queue, simulated clock), so a restored run resumes mid-simulation
+    bit-identically instead of restarting the loop at time 0."""
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.fleet import FleetTrainer, WorkerSpec
+        from repro_torch.models.profiles import layer_profiles
+        topo = _build_topology(config, device)
+        specs = {w: WorkerSpec(down_bps=link.down.bandwidth_bps,
+                               up_bps=link.up.bandwidth_bps,
+                               flops=topo.worker_flops[w])
+                 for w, link in enumerate(topo.links)}
+        fleet_cfg = config.fleet or FleetConfig()
+        self.trainer = FleetTrainer(
+            init_layers=self._initial_layers(), loss_fn=self._loss_fn,
+            optimizer=config.build_optimizer(), workers=specs,
+            schedule=fleet_cfg.build_schedule(tuple(specs)),
+            num_servers=topo.num_servers,
+            workers_per_shard=fleet_cfg.workers_per_shard,
+            staleness=config.execution.staleness or 0,
+            throttle=config.execution.throttle,
+            strategy=config.schedule.strategy,
+            profiles=layer_profiles(arch, self.shape),
+            compressor=config.compression.build(),
+            drift_detector=fleet_cfg.build_detector(),
+            stall_factor=fleet_cfg.stall_factor,
+            check_interval=fleet_cfg.check_interval,
+            async_planning=config.schedule.async_planning,
+            plan_cache_size=config.schedule.plan_cache_size)
+
+    @property
+    def events(self):
+        timed = sorted(tuple(self.trainer.replan_events) +
+                       tuple(self.trainer.membership_events),
+                       key=lambda e: e.sim_time)
+        return tuple(timed) + tuple(self._eval_events)
+
+    @property
+    def _server(self):
+        return self.trainer.server
+
+    def _run_pushes(self, num_pushes, wfn):
+        return self.trainer.run(num_pushes, wfn, reset=not self._started)
+
+    def timeline(self):
+        return self.trainer.log
+
+    def save_state(self, path: str) -> None:
+        """Checkpoint server state plus the live event loop.
+
+        The loop (engine queue, in-flight gradients, SSP barrier,
+        membership roster, detector streams, run log) lands next to the
+        parameter checkpoint at ``path + ".loop"``."""
+        self._save_tree(path, {"server": self.trainer.server.state_dict()})
+        self.trainer.save_loop_state(path + ".loop")
+
+    def restore_state(self, path: str) -> None:
+        t = self._load_tree(path,
+                            {"server": self.trainer.server.state_template()})
+        self.trainer.server.load_state_dict(t["server"])
+        self.trainer.restore_loop_state(path + ".loop")
+        # the loop resumes mid-simulation: keep driving the restored run
+        # instead of resetting to time 0
+        self._started = True
+        log = self.trainer.log
+        self._reported = len(log.accepted) if log is not None else 0

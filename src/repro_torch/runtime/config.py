@@ -49,15 +49,8 @@ _THROTTLES = ("reject", "wait")
 _COST_SOURCES = ("analytic", "measured")
 
 
-# names the reference takes from modules this slice does not port yet
+# the reference takes these from repro.pipeline, which is not ported yet
 _PIPELINE_SCHEDULES = ("gpipe", "1f1b")
-_FLEET_EVENT_KINDS = ("join", "leave", "fail", "drift")
-_FAIL_MODES = ("crash", "stall")
-
-
-def _pending(what: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet "
-                               f"(ROADMAP queue 1)")
 
 
 def _as_tuple(x) -> Optional[Tuple[float, ...]]:
@@ -293,7 +286,7 @@ class CompressionConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FleetEventConfig:
-    """One scripted membership/environment change (a later slice of the port).
+    """One scripted membership/environment change (``repro_torch.fleet``).
 
     ``kind="join"`` may carry the joining worker's link/compute spec via
     ``down_gbps``/``up_gbps``/``flops`` (defaults when unset);
@@ -312,11 +305,12 @@ class FleetEventConfig:
     flops: Optional[float] = None
 
     def __post_init__(self):
-        if self.kind not in _FLEET_EVENT_KINDS:
-            raise ValueError(f"kind must be one of {_FLEET_EVENT_KINDS}, "
+        from repro_torch.fleet.membership import FAIL_MODES, FLEET_EVENT_KINDS
+        if self.kind not in FLEET_EVENT_KINDS:
+            raise ValueError(f"kind must be one of {FLEET_EVENT_KINDS}, "
                              f"got {self.kind!r}")
-        if self.mode not in _FAIL_MODES:
-            raise ValueError(f"mode must be one of {_FAIL_MODES}, got "
+        if self.mode not in FAIL_MODES:
+            raise ValueError(f"mode must be one of {FAIL_MODES}, got "
                              f"{self.mode!r}")
         if self.time < 0:
             raise ValueError(f"time must be >= 0, got {self.time}")
@@ -329,8 +323,23 @@ class FleetEventConfig:
                              f"(got kind={self.kind!r})")
 
     def build(self):
-        """The fleet event this block describes."""
-        raise _pending("the elastic fleet")
+        """The :class:`repro_torch.fleet.FleetEvent` this block describes."""
+        from repro_torch.fleet.membership import FleetEvent, WorkerSpec
+        spec = None
+        if self.kind == "join" and (self.down_gbps is not None or
+                                    self.up_gbps is not None or
+                                    self.flops is not None):
+            defaults = WorkerSpec()
+            spec = WorkerSpec(
+                down_bps=(self.down_gbps * 1e9 if self.down_gbps is not None
+                          else defaults.down_bps),
+                up_bps=(self.up_gbps * 1e9 if self.up_gbps is not None
+                        else defaults.up_bps),
+                flops=self.flops if self.flops is not None
+                else defaults.flops)
+        return FleetEvent(time=self.time, kind=self.kind,
+                          worker=self.worker, mode=self.mode,
+                          factor=self.factor, spec=spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -388,12 +397,21 @@ class FleetConfig:
             raise ValueError("drift_patience and drift_warmup must be >= 1")
 
     def build_schedule(self, initial_workers):
-        """The fleet membership schedule this block describes."""
-        raise _pending("the elastic fleet")
+        """The :class:`repro_torch.fleet.FleetSchedule` this describes."""
+        from repro_torch.fleet.membership import FleetSchedule
+        if self.churn > 0:
+            return FleetSchedule.synthesize(
+                initial_workers, churn=self.churn, horizon=self.horizon,
+                seed=self.churn_seed)
+        return FleetSchedule(tuple(e.build() for e in self.events))
 
     def build_detector(self):
-        """The fleet drift detector this block describes."""
-        raise _pending("the elastic fleet")
+        """The fleet's :class:`FleetDriftDetector` this describes."""
+        from repro_torch.fleet.drift import FleetDriftDetector
+        return FleetDriftDetector(alpha=self.drift_alpha,
+                                  threshold=self.drift_threshold,
+                                  patience=self.drift_patience,
+                                  warmup=self.drift_warmup)
 
 
 @dataclasses.dataclass(frozen=True)

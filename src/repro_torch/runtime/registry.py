@@ -4,9 +4,9 @@
 buildable from a :class:`~repro_torch.runtime.config.RuntimeConfig` whose
 ``runtime`` field carries that name; :func:`build_runtime` is the single
 construction path every launcher goes through.  The port registers
-``local``, ``zero``, ``ps``, ``dynamic``, ``dynamic-ps``, ``ps-async`` and
-``dynamic-ps-async`` so far; the other names of the schema (``fleet-async``,
-``pipeline``) raise.
+``local``, ``zero``, ``ps``, ``dynamic``, ``dynamic-ps``, ``ps-async``,
+``dynamic-ps-async`` and ``fleet-async`` so far; the schema's last name,
+``pipeline``, raises.
 """
 
 from __future__ import annotations

@@ -230,6 +230,58 @@ def test_server_state_round_trip_drops_snapshots_and_pending():
         plain.load_state_dict(server.state_dict())
 
 
+def _state_arrays(state):
+    """A server ``state_dict`` as numpy: flats, mu, nu and the step."""
+    opt = state["opt"]
+    return ([np.array(f) for f in state["flats"]],
+            [np.array(m) for m in opt.mu], [np.array(m) for m in opt.nu],
+            int(np.asarray(opt.step)), int(np.asarray(state["version"])))
+
+
+def test_state_dict_is_a_value_that_later_commits_leave_alone():
+    """A state dict taken before a commit still holds the pre-commit
+    flats, moments and step after it, as the reference's (immutable
+    arrays) does: the port's AdamW updates the live buffers in place."""
+    from repro.optim import adamw as jax_adamw
+    from repro.ps import PSServer as JaxPSServer
+    from repro.dist.collectives import flatten_tree as jax_flatten
+    from repro.dist.collectives import make_flat_spec as jax_spec
+    server, specs = _make_server(optimizer=adamw(0.1))
+    trees = [{"w": jnp.arange(6, dtype=jnp.float32) + l} for l in range(4)]
+    jspecs = [jax_spec(t, 1) for t in trees]
+    ref = JaxPSServer(jspecs, JaxPSTopology.uniform(2, 2), jax_adamw(0.1),
+                      [jax_flatten(t, s) for t, s in zip(trees, jspecs)],
+                      staleness_bound=1)
+    taken, ref_taken = server.state_dict(), ref.state_dict()
+    before = _state_arrays(taken)
+    _push_all(server, specs, 0, 0)
+    for bucket in ((3, 2), (1, 0)):
+        ref.push_bucket(0, 0, bucket, {l: jnp.ones(6) for l in bucket})
+    assert server.version == ref.version == 1
+    after, ref_after = _state_arrays(taken), _state_arrays(ref_taken)
+    for mine, theirs, pre in zip(after, ref_after, before):
+        if isinstance(mine, int):
+            assert mine == theirs == pre == 0
+            continue
+        for a, b, c in zip(mine, theirs, pre):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(a, b)
+    # the head did move: a later state dict holds the commit
+    assert _state_arrays(server.state_dict())[3] == 1
+    assert not np.array_equal(_state_arrays(server.state_dict())[0][0],
+                              before[0][0])
+
+
+def test_state_template_carries_shapes_and_no_bytes():
+    server, specs = _make_server(optimizer=adamw(0.1))
+    template = server.state_template()
+    leaves = [*template["flats"], *template["opt"].mu, *template["opt"].nu,
+              template["opt"].step]
+    assert all(t.device.type == "meta" for t in leaves)
+    assert [tuple(f.shape) for f in template["flats"]] == \
+        [(s.padded,) for s in specs]
+
+
 def test_reshard_moves_bytes_as_the_reference():
     from repro.optim import adamw as jax_adamw
     from repro.ps import PSServer as JaxPSServer

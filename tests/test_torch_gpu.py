@@ -526,6 +526,64 @@ def test_pinned_pull_keeps_its_bytes_on_the_card(cuda, opt):
     assert server.snapshot_versions == (2, 3)
 
 
+def _card_server(cuda, staleness=1):
+    """3 layers of 700 on the card behind 2 servers, AdamW 0.1."""
+    from repro_torch.dist.collectives import flatten_tree, make_flat_spec
+    from repro_torch.optim import adamw
+    from repro_torch.ps import PSServer, PSTopology
+    trees = [{"w": torch.arange(700, dtype=torch.float32, device=cuda) + l}
+             for l in range(3)]
+    specs = [make_flat_spec(t, 1) for t in trees]
+    server = PSServer(specs, PSTopology.uniform(2, 2), adamw(0.1),
+                      [flatten_tree(t, s) for t, s in zip(trees, specs)],
+                      staleness_bound=staleness)
+    return server, specs
+
+
+def _commit(server, specs, version, cuda):
+    server.push_bucket(0, version, (2, 1, 0), {
+        l: torch.full((specs[l].padded,), 1.0 + version, device=cuda)
+        for l in range(3)})
+
+
+def test_reshard_keeps_the_pinned_bytes_on_the_card(cuda):
+    """A reshard (3 shards, then 1) moves no CUDA buffer: the head, the
+    moments and a pull pinned at the retained snapshot keep their bytes."""
+    from repro_torch.ps import PSTopology
+    server, specs = _card_server(cuda)
+    for v in range(2):
+        _commit(server, specs, v, cuda)
+    pin = server.version - 1
+    _, pinned = server.pull_bucket((0, 1, 2), version=pin)
+    pinned = {l: f.clone() for l, f in pinned.items()}
+    head = [f.clone() for f in server.flats()]
+    mu = [m.clone() for m in server._opt_state.mu]
+    for shards in (3, 1):
+        server.reshard(PSTopology.uniform(shards, 2))
+        _, again = server.pull_bucket((0, 1, 2), version=pin)
+        for l in range(3):
+            assert again[l].is_cuda and torch.equal(again[l], pinned[l])
+            assert torch.equal(server.flats()[l], head[l])
+            assert torch.equal(server._opt_state.mu[l], mu[l])
+    assert server.ledger.num_reshards == 2
+
+
+def test_state_dict_of_a_card_server_is_unchanged_by_a_commit(cuda):
+    """The state dict is a host value: a later commit on the card moves
+    the live buffers and leaves the taken dict as it was."""
+    server, specs = _card_server(cuda)
+    taken = server.state_dict()
+    opt = taken["opt"]
+    assert all(not t.is_cuda for t in [*taken["flats"], *opt.mu, *opt.nu,
+                                       opt.step])
+    before = [t.clone() for t in [*taken["flats"], *opt.mu, *opt.nu]]
+    _commit(server, specs, 0, cuda)
+    assert int(opt.step) == 0 and int(server._opt_state.step) == 1
+    for a, b in zip([*taken["flats"], *opt.mu, *opt.nu], before):
+        assert torch.equal(a, b)
+    assert not torch.equal(server.flats()[0].cpu(), taken["flats"][0])
+
+
 def _cnn_async(device, throttle):
     """3 workers, SGD 0.05, k = 1 over the small CNN from one seeded CPU
     draw, on ``device``."""

@@ -169,7 +169,7 @@ def test_launcher_runs_on_cpu_and_dumps_config(capsys):
 
 
 def test_unported_runtimes_raise():
-    for name in ("fleet_async", "pipeline"):
+    for name in ("pipeline",):
         cfg = RuntimeConfig.load(os.path.join(
             CONFIGS, f"{name}.json"))
         with pytest.raises(ValueError, match="not ported"):
@@ -184,6 +184,15 @@ def test_async_runtimes_build(name):
     assert rt.timeline() is None and rt.ledger["num_pushes"] == 0
     loop = getattr(rt.trainer, "trainer", rt.trainer)     # the async loop
     assert loop.computations == 0 and loop.log is None
+
+
+def test_fleet_runtime_builds():
+    rt = build_runtime(RuntimeConfig.load(os.path.join(
+        CONFIGS, "fleet_async.json")), device="cpu")
+    assert rt.timeline() is None and rt.ledger["num_pushes"] == 0
+    assert rt.events == () and rt.trainer.device == torch.device("cpu")
+    assert rt.trainer.membership.active == (0, 1, 2)
+    assert [e.kind for e in rt.trainer.schedule.events] == ["join", "fail"]
 
 
 @pytest.mark.parametrize("name", ["dynamic", "dynamic_ps"])
