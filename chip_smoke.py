@@ -70,14 +70,28 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    and peak memory against the reckoning; then a resume witness at 4
    layers of full width (``save_state`` mid-run, a fresh runtime restored
    from it gives the rest of the run bitwise);
-9. ``configs``: the checked-in ``zero.json`` / ``local.json`` / ``ps.json``
-   / ``dynamic.json`` / ``dynamic_ps.json`` / ``ps_async.json`` /
-   ``ps_async_int8.json`` / ``dynamic_ps_async.json`` / ``fleet_async.json``
-   smoke configs through the launcher (``ps.json`` plain, int8 and top-k);
+9. ``pipeline``: the pipeline runtime at granite-3-2b's full width under
+   ``pipeline.json``'s block (S = 2 stages, M = 2 micro-batches, 1f1b),
+   3 steps: flash against its plain version at the path's shape (one
+   sequence a micro-batch), the partition, the ledger against its
+   formula, flash launches (3 a block and micro-batch) and no other
+   kernel, no collective and no process group, peak memory against the
+   reckoning, the losses against the main path's (rtol 1e-5: the
+   micro-batches regroup the sums), seconds a step, and the transfer plan
+   and simulated timeline printed; then a witness at 4 blocks
+   of full width: losses and parameters bitwise across S at M = 1,
+   between S = 2 and 4 at M = 2, between gpipe and 1f1b, and with
+   ``stage_devices`` on the card against ``None``;
+10. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
+   ``ps.json`` / ``dynamic.json`` / ``dynamic_ps.json`` /
+   ``ps_async.json`` / ``ps_async_int8.json`` / ``dynamic_ps_async.json`` /
+   ``fleet_async.json`` / ``pipeline.json`` smoke configs through the
+   launcher (``ps.json`` plain, int8 and top-k);
    zero against local to fp32 tolerance, zero bitwise across the four
    scheduling strategies, and plain ps bitwise equal to zero; then
    ``ps.json`` plain, int8 and top-k, ``dynamic.json``, ``dynamic_ps.json``,
-   the three async configs, ``fleet_async.json`` plain and int8 (its
+   the three async configs, ``pipeline.json``, ``fleet_async.json`` plain
+   and int8 (its
    events and push histories equal, the int8 launches a layer of each
    accepted push and partial walk) and a reduced recurrentgemma-2b
    ``zero`` run, on the card against the port on the CPU from one initial
@@ -148,6 +162,12 @@ FLEET_EVENTS = ((1.5, "join", 3), (2.5, "fail", 1), (3.5, "leave", 2))
 FLEET_RESUME_LAYERS = 4   # 40 would write ~28 GB of server state to disk
 FLEET_RESUME_PUSHES = 3   # pushes before and after the checkpoint
 ACTIVATION_GIB = 1.2      # remat's activations, measured in phase async
+PIPELINE_SEGMENTS = ((1, 22), (23, 42))   # S = 2 at 1e10 FLOP/s
+# beyond parameters, mu, nu and gradient accumulators: a micro-batch's
+# activations, the head's logits, one layer's gradients, the embedding's
+# gradient from the head and AdamW's temporaries, reckoned before the run
+PIPELINE_ACTIVATION_GIB = 2.0
+PIPELINE_WITNESS_LAYERS = 4   # the bitwise witness's one cut: depth
 TOPK_FRACTION = 0.01
 PS_SCHEMES = (("int8", ("compress_quantize", "compress_dequantize")),
               ("topk", ("compress_sparsify", "compress_densify")))
@@ -2132,6 +2152,214 @@ def phase_fleet(smi: str) -> None:
     fleet_resume_witness(arch)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the pipeline runtime at full width
+# ---------------------------------------------------------------------------
+
+
+def pipeline_config():
+    """The main path's model, batch and seed under ``pipeline.json``'s
+    pipeline block (S = 2, M = 2, 1f1b, 1 chunk) and network."""
+    from repro_torch.runtime import RuntimeConfig
+    smoke = RuntimeConfig.load(str(ROOT / "examples" / "runtime_configs" /
+                                   "pipeline.json"))
+    return RuntimeConfig(**dict(MAIN, runtime="pipeline"),
+                         pipeline=smoke.pipeline, schedule=smoke.schedule,
+                         measure=smoke.measure)
+
+
+def check_pipeline_flash(arch, config, dev) -> float:
+    """Flash at the pipeline path's call, before the path runs: one
+    micro-batch of batch / M sequences, (B, T, H, hd) views, causal, f32,
+    against its plain version."""
+    from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
+                                                         flash_attention)
+    b = config.batch // config.pipeline.microbatches
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = _qkv(gen, dev, b, arch.num_heads, arch.num_kv_heads,
+                   config.seq, arch.head_dim, torch.float32, True)
+    with torch.no_grad():
+        err = (flash_attention(q, k, v, True, 0, 0.0)
+               - _ref_fwd(q, k, v, True, 0, 0.0)).abs().max().item()
+    if not err <= F32_ATOL:
+        raise AssertionError(f"flash at the pipeline path's shape: max abs "
+                             f"err {err:.3g} > {F32_ATOL}")
+    say("pipeline", f"flash_attention_fwd at the pipeline path's (B={b}, "
+                    f"H={arch.num_heads}/{arch.num_kv_heads}, T={config.seq},"
+                    f" hd={arch.head_dim}) f32 views: max abs err {err:.3g} "
+                    f"against its plain version (atol {F32_ATOL})")
+    return err
+
+
+def pipeline_ledger_formula(tr, steps: int) -> dict:
+    """The ledger of ``steps`` steps: a pull of each micro-batch's
+    activation and a push of its gradient at every boundary, and with
+    S > 1 one pull of the embedding to the head's stage and a push of its
+    gradient back per micro-batch."""
+    S, M = tr.num_stages, tr.num_microbatches
+    act = tr.activation_bytes()
+    embed = tr.specs[0].total * 4 if S > 1 else 0
+    pulls = steps * (M * (S - 1) + (S > 1))
+    pushes = steps * (M * (S - 1) + M * (S > 1))
+    pull_bytes = steps * (M * sum(act) + embed)
+    push_bytes = steps * M * (sum(act) + embed)
+    return {"num_pulls": pulls, "num_pushes": pushes,
+            "pull_bytes": pull_bytes, "push_bytes": push_bytes,
+            "pull_wire_bytes": pull_bytes, "push_wire_bytes": push_bytes}
+
+
+def pipeline_witness(arch, dev) -> None:
+    """At PIPELINE_WITNESS_LAYERS blocks of full width, 2 steps each: the
+    losses and parameters bitwise across S at M = 1, between S = 2 and 4
+    at M = 2, between gpipe and 1f1b, and with the stages placed on the
+    card by ``stage_devices`` against ``None``; the S = 1 against S = 2 gap
+    at M = 2 (the tied embedding's gradient grouping) printed."""
+    from repro_torch.data.pipeline import SyntheticText
+    from repro_torch.optim import adamw
+    from repro_torch.pipeline import PipelineTrainer
+    small = dataclasses.replace(arch, num_layers=PIPELINE_WITNESS_LAYERS)
+    data = SyntheticText(small.vocab_size, MAIN["seq"], MAIN["batch"],
+                         seed=0)
+
+    def run(S, M, name="1f1b", devices=None):
+        tr = PipelineTrainer(cfg=small, optimizer=adamw(3e-4), device=dev,
+                             num_stages=S, num_microbatches=M,
+                             schedule_name=name, stage_devices=devices)
+        state = tr.init_state(torch.Generator(device=dev).manual_seed(0))
+        losses = []
+        for i in range(2):
+            state, loss = tr.step(state, data.batch(i))
+            losses.append(float(loss))
+        out = (losses, [f.clone() for f in state["flat_params"]])
+        del state, tr
+        free_cuda()
+        return out
+
+    def same(a, b, what):
+        if a[0] != b[0] or any(not torch.equal(bits(x), bits(y))
+                               for x, y in zip(a[1], b[1])):
+            raise AssertionError(f"pipeline witness: {what}: losses "
+                                 f"{a[0]} vs {b[0]}")
+
+    one = {S: run(S, 1) for S in (1, 2, 4)}
+    same(one[1], one[2], "S = 1 vs S = 2 at M = 1")
+    same(one[1], one[4], "S = 1 vs S = 4 at M = 1")
+    ones = one[1][0]
+    del one
+    two = {S: run(S, 2) for S in (1, 2, 4)}
+    same(two[2], two[4], "S = 2 vs S = 4 at M = 2")
+    same(two[2], run(2, 2, "gpipe"), "gpipe vs 1f1b at S = 2, M = 2")
+    same(two[2], run(2, 2, devices=[dev, dev]),
+         "stage_devices=[cuda:0] * 2 vs None")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(two[1][0], two[2][0]))
+    say("pipeline", f"witness at {PIPELINE_WITNESS_LAYERS} blocks of full "
+                    f"width, 2 steps: losses and parameters bitwise across "
+                    f"S = 1, 2, 4 at M = 1 ({ones})")
+    say("pipeline", f"witness: bitwise S = 2 vs S = 4 at M = 2 "
+                    f"({two[2][0]}), gpipe vs 1f1b, stage_devices=[cuda:0] "
+                    f"x 2 vs None; S = 1 vs S = 2 at M = 2 (the embedding "
+                    f"grouping, not asserted): {two[1][0]} vs {two[2][0]}, "
+                    f"rel gap {gap:.3g}")
+
+
+def phase_pipeline(profile: bool, smi: str, main_losses: list) -> None:
+    """``pipeline`` at granite-3-2b's full width, S = 2, M = 2, 1f1b:
+    flash at the path's shape, partition, ledger, flash launches, no
+    collective, peak memory, losses against the main path's, step seconds,
+    transfer plans and timeline; then the 4-block witness."""
+    from repro_torch.dist.collectives import collective_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import build_runtime
+    drop_group()                    # the pipeline needs no process group
+    config = pipeline_config()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = build_runtime(config)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    arch, tr = rt.arch, rt.trainer
+    part = rt.partition
+    if part.segments != PIPELINE_SEGMENTS:
+        raise AssertionError(f"pipeline: partition {part.segments} != "
+                             f"{PIPELINE_SEGMENTS}")
+    gib = [sum(tr.specs[l].total for l in part.layers_of(s)) * 4 / 2**30
+           for s in range(tr.num_stages)]
+    say("pipeline", f"{arch.name} full width, batch {config.batch} x seq "
+                    f"{config.seq}, S = {tr.num_stages}, M = "
+                    f"{tr.num_microbatches} ({tr.schedule_name}); partition "
+                    f"{part.segments}, loads "
+                    f"{[round(x, 2) for x in part.loads]} s at "
+                    f"{config.measure.compute_flops_per_s:g} FLOP/s; stage "
+                    f"parameters {[round(g, 2) for g in gib]} GiB; built in "
+                    f"{built:.1f} s")
+    check_pipeline_flash(arch, config, tr.device)
+    collectives = collective_counts()
+    reset_launch_counts()
+    losses, secs = timed_steps(rt, STEPS)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if collective_counts() != collectives or \
+            torch.distributed.is_initialized():
+        raise AssertionError("pipeline: a collective or a process group")
+    attn = sum(k in ("global_attn", "local_attn")
+               for k in arch.layer_kinds())
+    flash = 3 * attn * tr.num_microbatches * STEPS
+    if counts.pop("flash_attention_fwd") != flash or any(counts.values()):
+        raise AssertionError(f"pipeline: launches {launch_counts()}, want "
+                             f"flash {flash} and nothing else")
+    led, want = rt.ledger, pipeline_ledger_formula(tr, STEPS)
+    if {k: led[k] for k in want} != want or \
+            led["boundary_pull_bytes"].keys() != {0, -1}:
+        raise AssertionError(f"pipeline: ledger {led} != the formula {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pipeline: non-finite losses {losses}")
+    # the main path's step on the same seed and batches; the micro-batches
+    # only regroup the sums
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, main_losses))
+    if not gap <= LOSS_RTOL:
+        raise AssertionError(f"pipeline: losses {losses} vs the main path's "
+                             f"{main_losses}: rel gap {gap:.3g} > "
+                             f"{LOSS_RTOL}")
+    copy = sum(s.total * 4 for s in tr.specs) / 2**30
+    reckoned = 4 * copy + PIPELINE_ACTIVATION_GIB
+    if not peak <= reckoned + 1.0:
+        raise AssertionError(f"pipeline: peak {peak:.2f} GiB > the "
+                             f"reckoning {reckoned:.2f} + 1 GiB")
+    plan, tl = rt.trainer.transfer_plans()[0], rt.timeline()
+    steady = sum(secs[1:]) / len(secs[1:])
+    tokens = config.batch * config.seq
+    say("pipeline", f"losses {losses}; the main path's {main_losses}, "
+                    f"rel gap {gap:.3g} (rtol {LOSS_RTOL})")
+    say("pipeline", f"ledger over {STEPS} steps {want} == the formula "
+                    f"(activations {tr.activation_bytes()} B a micro-batch "
+                    f"at each boundary, the embedding "
+                    f"{tr.specs[0].total * 4} B); no collective "
+                    f"({collectives} before and after), no process group")
+    say("pipeline", f"launches: flash {flash} == 3 x {attn} attention "
+                    f"blocks x {tr.num_microbatches} micro-batches x "
+                    f"{STEPS} steps (forward, the stage's recompute, the "
+                    f"VJP's recompute); no other kernel of csrc/")
+    say("pipeline", f"boundary 0 plan {plan.decision}, speedup "
+                    f"{plan.speedup:.4f} over the whole tensor; simulated "
+                    f"makespan {tl.makespan:.3f} s, bubble fraction "
+                    f"{tl.bubble_fraction:.4f} (tests/test_torch_pipeline"
+                    f".py holds these to the reference's at this shape)")
+    say("pipeline", f"step seconds {[round(x, 4) for x in secs]}: first "
+                    f"{secs[0]:.3f} s, steady {steady * 1e3:.1f} ms/step "
+                    f"(steps 2-{STEPS}), {tokens / steady:.1f} tokens/s; "
+                    f"peak {peak:.2f} GiB against the reckoning "
+                    f"{reckoned:.2f} (parameters, mu, nu and gradient "
+                    f"accumulators, 4 x {copy:.2f} GiB, + "
+                    f"{PIPELINE_ACTIVATION_GIB} GiB); {smi}")
+    if profile:
+        profile_step(rt, steady, "pipeline")
+    dev = tr.device
+    del rt, tr
+    free_cuda()
+    pipeline_witness(arch, dev)
+
+
 def traced(fn) -> list:
     """``fn()`` under ``torch.profiler``, the card idle before and after
     the window so that it holds whole calls: the device rows of
@@ -2181,6 +2409,12 @@ def profile_step(rt, steady: float, phase: str = "profile") -> None:
 # ---------------------------------------------------------------------------
 
 
+def drop_group() -> None:
+    """Destroy the process group a runtime made (the pipeline makes none)."""
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
 def card_against_cpu(config, model=None) -> tuple:
     """``STEPS`` losses of ``config`` (``model`` overriding its arch) on the
     card and on the CPU (plain versions, held to the reference there) from
@@ -2189,20 +2423,18 @@ def card_against_cpu(config, model=None) -> tuple:
     CPU)."""
     import tempfile
     from repro_torch.runtime import build_runtime
-    dist = torch.distributed
     (ROOT / "build").mkdir(exist_ok=True)               # ignored by git
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         path = str(Path(tmp) / "init.npz")
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        drop_group()
         cpu_rt = build_runtime(config, model, device="cpu")  # a gloo group
         cpu_rt.save_state(path)
         cpu = cpu_rt.fit(STEPS)
-        dist.destroy_process_group()
+        drop_group()
         card_rt = build_runtime(config, model)            # an NCCL group
         card_rt.restore_state(path)
         card = card_rt.fit(STEPS)
-        dist.destroy_process_group()
+        drop_group()
     gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
     return gap, card, cpu
 
@@ -2272,6 +2504,8 @@ def phase_configs() -> None:
     asyncs = {name: train_main(["--config", str(cfgs / f"{name}.json"),
                                 "--steps", str(STEPS), "--log-every", "0"])
               for name in (*ASYNC_CONFIGS, "fleet_async")}
+    pipeline = train_main(["--config", str(cfgs / "pipeline.json"),
+                           "--steps", str(STEPS), "--log-every", "0"])
     counts = launch_counts()
     if min(counts.values()) < 1:
         raise AssertionError(f"a kernel never ran in the configs: {counts}")
@@ -2321,6 +2555,16 @@ def phase_configs() -> None:
         say("configs", f"{name}.json through the launcher {losses}; from one "
                        f"initial state: card {card}, CPU {cpu}; rel gap "
                        f"{gap:.3g} (rtol {CARD_CPU_RTOL})")
+    gap, card, cpu = card_against_cpu(RuntimeConfig.load(
+        str(cfgs / "pipeline.json")))
+    if not gap <= CARD_CPU_RTOL or not all(math.isfinite(x)
+                                           for x in pipeline):
+        raise AssertionError(f"pipeline.json: launcher {pipeline}; card "
+                             f"{card} vs CPU {cpu}: rel gap {gap:.3g} > "
+                             f"{CARD_CPU_RTOL}")
+    say("configs", f"pipeline.json through the launcher {pipeline}; from "
+                   f"one initial state: card {card}, CPU {cpu}; rel gap "
+                   f"{gap:.3g} (rtol {CARD_CPU_RTOL})")
     fleet = RuntimeConfig.load(str(cfgs / "fleet_async.json"))
     for scheme, names in (("none", ()), PS_SCHEMES[0]):
         run = fleet_card_against_cpu(dataclasses.replace(
@@ -2385,8 +2629,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one extra step of the main path, of each "
-                         "ps path, of the hybrid path and one extra push "
-                         "of ps-async with torch.profiler")
+                         "ps path, of the hybrid path and of the pipeline, "
+                         "and one extra push of ps-async with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -2409,6 +2654,8 @@ def main(argv=None) -> None:
     hybrid_counts = timed("hybrid", phase_hybrid, args.profile)
     timed("async", phase_async, args.profile)
     timed("fleet", phase_fleet, smi)
+    timed("pipeline", phase_pipeline, args.profile, smi,
+          main_run["losses"])
     timed("configs", phase_configs)
     say("time", f"phase wall seconds {walls}; "
                 f"{time.perf_counter() - start:.1f} s since the start")

@@ -1,4 +1,4 @@
-"""Carry weights and ZeRO states across from the reference, as numpy.
+"""Carry weights and trainer states across from the reference, as numpy.
 
 The reference draws its initial weights with ``jax.random``, which torch
 cannot replay; a parity check therefore initialises in the reference,
@@ -30,8 +30,10 @@ def zero_state_from_numpy(trainer, flat_params: Sequence[np.ndarray],
                           mu: Optional[Sequence[np.ndarray]] = None,
                           nu: Optional[Sequence[np.ndarray]] = None,
                           step: int = 0):
-    """A ``ZeroTrainer`` state from the reference's whole ``(padded,)``
-    flat buffers, optimizer moments and step (this rank keeps its shard)."""
+    """A trainer's state from the reference's whole ``(padded,)`` flat
+    buffers, optimizer moments and step, through its ``state_from_flats``:
+    a ``ZeroTrainer`` rank keeps its shard, a ``PipelineTrainer`` puts each
+    stage's buffers on that stage's device."""
     def as_tensors(bufs):
         return None if bufs is None else [torch.from_numpy(np.array(b))
                                            for b in bufs]

@@ -2,7 +2,8 @@
 
 ``--config runtime.json`` builds the runtime from a checked-in
 :class:`RuntimeConfig` (``examples/runtime_configs/{local,zero,ps,dynamic,
-dynamic_ps,ps_async,ps_async_int8,dynamic_ps_async,fleet_async}.json``);
+dynamic_ps,ps_async,ps_async_int8,dynamic_ps_async,fleet_async,
+pipeline}.json``);
 otherwise the flags below map onto one, as the reference's launcher maps
 them (``--dump-config`` prints it).  ``--staleness k`` switches ``ps`` /
 ``dynamic-ps`` to their asynchronous form (``ps-async`` /
@@ -11,8 +12,12 @@ reject|wait``, ``--aggregate`` for BSP rounds, ``--ps-workers`` logical
 workers); ``fleet-async`` runs that loop over an elastic fleet
 (``--fleet-schedule events.json`` scripts joins, leaves, failures and
 drift as a JSON list of fleet event dicts; ``--workers-per-shard`` lets
-the shard count track the fleet).  The async runtimes' unit of progress
-is one accepted push.  With
+the shard count track the fleet); ``pipeline`` splits the model into
+``--stages`` contiguous stages balanced by profiled fc + bc and runs
+``--microbatches`` micro-batches a step under ``--pipeline-schedule``
+(gpipe | 1f1b), its boundary transfers planned by DynaComm
+(``--transfer-chunks`` splits each micro-batch's boundary tensor).  The
+async runtimes' unit of progress is one accepted push.  With
 ``--config``, ``--compress`` (and ``--topk-fraction`` /
 ``--no-error-feedback`` with it) replaces the config's compression block,
 so one checked-in PS config runs plain, int8 or top-k.  The run goes to the
@@ -35,6 +40,9 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train \
         --config examples/runtime_configs/fleet_async.json --steps 6 \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --config examples/runtime_configs/pipeline.json --steps 2 \
+        --device cpu
 
 The dynamic runtimes re-plan every ``--steps-per-epoch`` steps and print
 one line per scheduling pass (``re-segmented`` / ``unchanged``, the
@@ -53,8 +61,9 @@ import time
 from repro_torch.configs import ARCHITECTURES
 from repro_torch.runtime import (CompressionConfig, ExecutionConfig,
                                  FleetConfig, MeasureConfig, NetworkConfig,
-                                 RuntimeConfig, ScheduleConfig,
-                                 TopologyConfig, build_runtime)
+                                 PipelineConfig, RuntimeConfig,
+                                 ScheduleConfig, TopologyConfig,
+                                 build_runtime)
 
 
 def _compression(args) -> CompressionConfig:
@@ -72,7 +81,7 @@ def config_from_flags(args) -> RuntimeConfig:
     if args.staleness is not None and name in ("ps", "dynamic-ps"):
         name += "-async"
     network = topology = None
-    if name in ("zero", "dynamic"):
+    if name in ("zero", "dynamic", "pipeline"):
         # pass the shift through even for 'zero': RuntimeConfig owns the
         # "a drift needs the run-time loop" diagnostic
         network = NetworkConfig(bandwidth_gbps=args.bw_gbps,
@@ -103,8 +112,18 @@ def config_from_flags(args) -> RuntimeConfig:
                 events = tuple(json.load(fh))
         fleet = FleetConfig(events=events,
                             workers_per_shard=args.workers_per_shard)
+
+    pipeline = None
+    if name == "pipeline":
+        pipeline = PipelineConfig(
+            stages=args.stages or 2, microbatches=args.microbatches or 2,
+            schedule=args.pipeline_schedule, chunks=args.transfer_chunks)
+    elif args.stages is not None or args.microbatches is not None:
+        raise SystemExit("--stages/--microbatches configure the pipeline "
+                         "runtime; add --runtime pipeline")
     return RuntimeConfig(
         runtime=name, arch=args.arch, reduced=args.reduced, fleet=fleet,
+        pipeline=pipeline,
         batch=args.batch, seq=args.seq, optimizer=args.optimizer, lr=args.lr,
         schedule=ScheduleConfig(
             strategy=args.strategy, reschedule_every=args.steps_per_epoch,
@@ -181,7 +200,8 @@ def main(argv=None):
                     help="train the smoke-scale variant")
     ap.add_argument("--runtime",
                     choices=("local", "zero", "dynamic", "ps", "dynamic-ps",
-                             "ps-async", "dynamic-ps-async", "fleet-async"),
+                             "ps-async", "dynamic-ps-async", "fleet-async",
+                             "pipeline"),
                     default="local",
                     help="registry name; --staleness k upgrades "
                          "ps/dynamic-ps to their -async form")
@@ -243,6 +263,19 @@ def main(argv=None):
     ap.add_argument("--workers-per-shard", type=int, default=0,
                     help="fleet-async: let the shard count track the "
                          "fleet size (0 keeps --ps-servers fixed)")
+    ap.add_argument("--stages", type=int, default=None,
+                    help="pipeline: number of contiguous stages (DP-"
+                         "balanced by profiled fc+bc; default 2)")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="pipeline: micro-batches per step (must divide "
+                         "--batch; default 2)")
+    ap.add_argument("--pipeline-schedule", choices=("gpipe", "1f1b"),
+                    default="1f1b",
+                    help="pipeline: micro-batch order (GPipe fill/drain "
+                         "or PipeDream-flush 1F1B)")
+    ap.add_argument("--transfer-chunks", type=int, default=1,
+                    help="pipeline: boundary-tensor chunks per micro-batch "
+                         "for DynaComm-segmented activation transfers")
     ap.add_argument("--compress", choices=("none", "int8", "topk"),
                     default=None,
                     help="ps: compress gradient pushes (int8 per-tile "
@@ -291,6 +324,10 @@ def main(argv=None):
         spec += f", fleet events {len(config.fleet.events)}" \
             if config.fleet.events else \
             f", fleet churn {config.fleet.churn}/s"
+    if config.runtime == "pipeline":
+        spec += (f", S={config.pipeline.stages} "
+                 f"M={config.pipeline.microbatches} "
+                 f"({config.pipeline.schedule})")
     print(f"{spec}, device {rt.device}")
     if config.runtime in ("zero", "ps"):
         plan = rt.plan

@@ -14,9 +14,10 @@ optionally with compressed pushes), their run-time re-planning loops
 live; each step is accounted against the plan active in it), and the
 asynchronous ``ps-async`` and ``dynamic-ps-async`` (the bounded-staleness
 event loop over a versioned server, per-worker re-plans per topology
-epoch in the dynamic one), and ``fleet-async`` (the same loop over an
+epoch in the dynamic one), ``fleet-async`` (the same loop over an
 elastic fleet: churn-driven re-plans, server re-sharding, drift and stall
-detection).  Every runtime draws its initial weights from
+detection), and ``pipeline`` (DP-balanced stages over micro-batches in one
+process, DynaComm-planned boundary transfers).  Every runtime draws its initial weights from
 the same seeded generator, so a dynamic run starts from the static run's
 state.
 
@@ -757,3 +758,63 @@ class FleetRuntime(_AsyncBase):
         self._started = True
         log = self.trainer.log
         self._reported = len(log.accepted) if log is not None else 0
+
+
+@register_runtime("pipeline",
+                  description="stage-partitioned pipeline parallelism with "
+                              "DynaComm-scheduled activation transfers")
+class PipelineRuntime(_CompiledRuntime):
+    """Profile → DP stage partition → micro-batch pipeline execution.
+
+    Stages are balanced by profiled fc + bc via
+    :func:`repro_torch.pipeline.partition_profiles`; inter-stage activation
+    traffic is planned through the shared edge cost model
+    (``dp_forward``/``dp_backward`` over virtual boundary layers) riding a
+    :class:`~repro_torch.core.planner.Planner`, so homogeneous boundaries
+    are one DP solve plus cache hits.  Every stage runs in this process on
+    the runtime's device; no process group is made.
+    """
+
+    def __init__(self, config, arch, batch_fn, device):
+        super().__init__(config, arch, batch_fn, device)
+        from repro_torch.core import costs_from_profiles
+        from repro_torch.core.planner import Planner
+        from repro_torch.models.profiles import layer_profiles
+        from repro_torch.pipeline import PipelineTrainer, partition_profiles
+        pcfg = config.pipeline        # materialized by RuntimeConfig
+        net = (config.schedule.network or NetworkConfig()).build()
+        profiles = layer_profiles(arch, self.shape)
+        partition = partition_profiles(
+            profiles, pcfg.stages,
+            compute_flops_per_s=config.measure.compute_flops_per_s)
+        self._costs = costs_from_profiles(
+            profiles, net=net,
+            compute_flops_per_s=config.measure.compute_flops_per_s)
+        self.planner = Planner(cache_size=config.schedule.plan_cache_size)
+        self.trainer = PipelineTrainer(
+            cfg=arch, optimizer=config.build_optimizer(), device=device,
+            num_stages=pcfg.stages, num_microbatches=pcfg.microbatches,
+            schedule_name=pcfg.schedule, aux_weight=config.aux_weight,
+            partition=partition, planner=self.planner,
+            transfer_strategy=config.schedule.strategy,
+            costs=self._costs, net=net, transfer_chunks=pcfg.chunks)
+        self._state = self.trainer.init_state(
+            _generator(device, config.seed))
+
+    @property
+    def partition(self):
+        return self.trainer.partition
+
+    def step(self, batch) -> float:
+        self._state, loss = self.trainer.step(self._state, batch)
+        self._data_idx += 1
+        return float(loss)
+
+    @property
+    def ledger(self) -> Dict[str, Any]:
+        led = dict(self.trainer.ledger)
+        led["push_compression_ratio"] = 1.0   # activations stay fp32
+        return led
+
+    def timeline(self):
+        return self.trainer.timeline()

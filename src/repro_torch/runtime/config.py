@@ -49,10 +49,6 @@ _THROTTLES = ("reject", "wait")
 _COST_SOURCES = ("analytic", "measured")
 
 
-# the reference takes these from repro.pipeline, which is not ported yet
-_PIPELINE_SCHEDULES = ("gpipe", "1f1b")
-
-
 def _as_tuple(x) -> Optional[Tuple[float, ...]]:
     """Normalize per-worker scalars/sequences so JSON round-trips equal."""
     if x is None or isinstance(x, (int, float)):
@@ -152,7 +148,7 @@ class TopologyConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Stage-partitioned pipeline execution (a later slice of the port).
+    """Stage-partitioned pipeline execution (``repro_torch.pipeline``).
 
     ``stages`` contiguous stages balanced by profiled fc + bc, ``schedule``
     micro-batch order (``gpipe`` fill/drain or ``1f1b`` PipeDream-flush),
@@ -167,14 +163,15 @@ class PipelineConfig:
     chunks: int = 1
 
     def __post_init__(self):
+        from repro_torch.pipeline.schedule import SCHEDULES
         if self.stages < 1:
             raise ValueError(f"stages must be >= 1, got {self.stages}")
         if self.microbatches < 1:
             raise ValueError(f"microbatches must be >= 1, got "
                              f"{self.microbatches}")
-        if self.schedule not in _PIPELINE_SCHEDULES:
+        if self.schedule not in SCHEDULES:
             raise ValueError(f"unknown pipeline schedule {self.schedule!r}; "
-                             f"choose from {list(_PIPELINE_SCHEDULES)}")
+                             f"choose from {list(SCHEDULES)}")
         if self.chunks < 1:
             raise ValueError(f"chunks must be >= 1, got {self.chunks}")
 

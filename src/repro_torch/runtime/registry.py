@@ -3,10 +3,10 @@
 ``@register_runtime("zero", description=...)`` on an adapter class makes it
 buildable from a :class:`~repro_torch.runtime.config.RuntimeConfig` whose
 ``runtime`` field carries that name; :func:`build_runtime` is the single
-construction path every launcher goes through.  The port registers
-``local``, ``zero``, ``ps``, ``dynamic``, ``dynamic-ps``, ``ps-async``,
-``dynamic-ps-async`` and ``fleet-async`` so far; the schema's last name,
-``pipeline``, raises.
+construction path every launcher goes through.  The port registers every
+name of the schema: ``local``, ``zero``, ``ps``, ``dynamic``,
+``dynamic-ps``, ``ps-async``, ``dynamic-ps-async``, ``fleet-async`` and
+``pipeline``.
 """
 
 from __future__ import annotations

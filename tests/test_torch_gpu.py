@@ -630,3 +630,59 @@ def test_async_cnn_on_the_card_matches_the_cpu(cuda, throttle):
                  np.abs(cpu.losses))
     print(f"async CNN/{throttle}: rel gap {gap:.3g}")
     assert gap <= CARD_CPU_RTOL
+
+
+def _pipeline_smoke():
+    from repro_torch.runtime import RuntimeConfig
+    return RuntimeConfig.load(os.path.join(ROOT, "examples",
+                                           "runtime_configs", "pipeline.json"))
+
+
+def test_pipeline_smoke_config_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """``pipeline.json`` from one initial state: the CPU's losses within
+    the card-against-CPU tolerance, and flash launched 3 times per
+    attention block and micro-batch a step (the forward, the stage's
+    recompute and the VJP's recompute); no other kernel of the port."""
+    from repro_torch.runtime import build_runtime
+    config = _pipeline_smoke()
+    path = str(tmp_path / "init.npz")
+    cpu_rt = build_runtime(config, device="cpu")
+    cpu_rt.save_state(path)
+    want = cpu_rt.fit(3)
+    card_rt = build_runtime(config)
+    card_rt.restore_state(path)
+    assert card_rt.trainer.device.type == "cuda"
+    reset_launch_counts()
+    got = card_rt.fit(3)
+    counts = launch_counts()
+    gap = np.max(np.abs(np.subtract(got, want)) / np.abs(want))
+    print(f"pipeline.json: card {got}, CPU {want}, rel gap {gap:.3g}")
+    assert gap <= CARD_CPU_RTOL
+    flash = 3 * 3 * card_rt.arch.num_layers * config.pipeline.microbatches
+    assert counts.pop("flash_attention_fwd") == flash
+    assert not any(counts.values()), counts
+    assert not torch.distributed.is_initialized()
+
+
+def test_pipeline_stage_devices_on_one_card_are_bitwise_none(cuda):
+    from repro_torch.pipeline import PipelineTrainer
+    from repro_torch.runtime import build_runtime
+    config = _pipeline_smoke()
+    rt = build_runtime(config)
+    batch = rt._batch_fn(0)
+    runs = []
+    for devices in (None, [cuda] * config.pipeline.stages):
+        tr = PipelineTrainer(
+            cfg=rt.arch, optimizer=config.build_optimizer(), device=cuda,
+            num_stages=config.pipeline.stages,
+            num_microbatches=config.pipeline.microbatches,
+            partition=rt.partition, stage_devices=devices)
+        state = tr.init_state(torch.Generator(device=cuda).manual_seed(0))
+        losses = []
+        for _ in range(2):
+            state, loss = tr.step(state, batch)
+            losses.append(float(loss))
+        runs.append((losses, state["flat_params"]))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        _assert_bitwise(a, b)

@@ -48,7 +48,8 @@ def test_importing_the_entry_points_loads_no_jax_or_reference():
             "repro_torch.dist, repro_torch.kernels, repro_torch.ps, "
             "repro_torch.compress, repro_torch.kernels.compress, "
             "repro_torch.fleet, repro_torch.fleet.trainer, "
-            "repro_torch.models.cnn, repro_torch.data; "
+            "repro_torch.models.cnn, repro_torch.data, "
+            "repro_torch.pipeline, repro_torch.pipeline.trainer; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))

@@ -168,12 +168,16 @@ def test_launcher_runs_on_cpu_and_dumps_config(capsys):
     assert dumped.runtime == "zero" and dumped.reduced
 
 
-def test_unported_runtimes_raise():
-    for name in ("pipeline",):
-        cfg = RuntimeConfig.load(os.path.join(
-            CONFIGS, f"{name}.json"))
-        with pytest.raises(ValueError, match="not ported"):
-            build_runtime(cfg, device="cpu")
+def test_unported_runtimes_raise(monkeypatch):
+    """Every name of the schema is registered; a name the registry lacks
+    raises before anything is built."""
+    from repro_torch.runtime import registry
+    from repro_torch.runtime.config import RUNTIME_REGIMES
+    assert registry.runtime_names() == tuple(sorted(RUNTIME_REGIMES))
+    monkeypatch.delitem(registry.RUNTIMES, "pipeline")
+    cfg = RuntimeConfig.load(os.path.join(CONFIGS, "pipeline.json"))
+    with pytest.raises(ValueError, match="not ported"):
+        build_runtime(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["ps_async", "ps_async_int8",
