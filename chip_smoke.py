@@ -82,7 +82,18 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    of full width: losses and parameters bitwise across S at M = 1,
    between S = 2 and 4 at M = 2, between gpipe and 1f1b, and with
    ``stage_devices`` on the card against ``None``;
-10. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
+10. ``verify``: the verification layer (``repro_torch.analysis``) on the
+   card, one NCCL rank: ``verify_runtime`` on full-width granite-3-2b under
+   ``zero`` (its recorded step's 5 all-gathers and 2 reduce-scatters
+   against the FlatSpec byte math, its launches against the plan), ``ps``
+   with int8 and with top-k pushes (wire model and ledger exact),
+   ``dynamic`` (two plans, each plan's first step traced once) and
+   ``pipeline`` (every stage's forward and backward trace empty; ledger,
+   partition and transfer plans), then the ten smoke configs; each gives
+   no finding.  Then one mutation: zero's recorded step against its plan
+   with one pull bucket split must be flagged (``SCHED-AG-COUNT``,
+   ``SCHED-AG-BYTES``);
+11. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
    ``ps.json`` / ``dynamic.json`` / ``dynamic_ps.json`` /
    ``ps_async.json`` / ``ps_async_int8.json`` / ``dynamic_ps_async.json`` /
    ``fleet_async.json`` / ``pipeline.json`` smoke configs through the
@@ -97,7 +108,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    ``zero`` run, on the card against the port on the CPU from one initial
    state, to a stated tolerance.
 
-The last lines are ``nvidia-smi``'s line, the kernels' JSON record and
+The line ``[time] phase wall seconds {...}`` gives each phase's seconds
+(``verify`` included) and the script's total.  The last lines are
+``nvidia-smi``'s line, the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
 
@@ -168,6 +181,9 @@ PIPELINE_SEGMENTS = ((1, 22), (23, 42))   # S = 2 at 1e10 FLOP/s
 # gradient from the head and AdamW's temporaries, reckoned before the run
 PIPELINE_ACTIVATION_GIB = 2.0
 PIPELINE_WITNESS_LAYERS = 4   # the bitwise witness's one cut: depth
+SMOKE_CONFIGS = ("zero", "local", "ps", "dynamic", "dynamic_ps", "ps_async",
+                 "ps_async_int8", "dynamic_ps_async", "fleet_async",
+                 "pipeline")
 TOPK_FRACTION = 0.01
 PS_SCHEMES = (("int8", ("compress_quantize", "compress_dequantize")),
               ("topk", ("compress_sparsify", "compress_densify")))
@@ -2360,6 +2376,169 @@ def phase_pipeline(profile: bool, smi: str, main_losses: list) -> None:
     pipeline_witness(arch, dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the verification layer on the card
+# ---------------------------------------------------------------------------
+
+
+def arch_of(config):
+    """The ``ArchConfig`` a runtime config names (``build_runtime``'s)."""
+    from repro_torch.configs import get_config
+    arch = get_config(config.arch)
+    return arch.reduced() if config.reduced else arch
+
+
+def flat_specs(arch) -> list:
+    """``arch``'s world-1 FlatSpecs, from its shapes on the host."""
+    from repro_torch.dist.collectives import make_flat_spec
+    from repro_torch.models import param_shapes, sched_layer_trees
+    return [make_flat_spec(t, 1)
+            for t in sched_layer_trees(param_shapes(arch))]
+
+
+def as_plan(obj):
+    from repro_torch.core import BucketPlan
+    return BucketPlan(forward=tuple(tuple(b) for b in obj["forward"]),
+                      backward=tuple(tuple(b) for b in obj["backward"]))
+
+
+def verified(tag: str, config) -> tuple:
+    """``verify_runtime(config)`` on the card, its kernels' launches
+    counted; any finding raises.  Returns (info, launches)."""
+    from repro_torch.analysis.runtime_verify import verify_runtime
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    free_cuda()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    findings, info = verify_runtime(config)
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    if findings:
+        raise AssertionError(f"verify {tag}: " + "; ".join(
+            f.format() for f in findings))
+    windows = {w: [k for k, _ in r] for w, r in info["collectives"].items()}
+    say("verify", f"{tag}: no finding ({', '.join(info['checked'])}) in "
+                  f"{secs:.1f} s; recorded {windows}")
+    return info, counts
+
+
+def held_to_the_plan(tag: str, records, plan, specs) -> None:
+    """A recorded step's collectives against its plan's FlatSpec math, in
+    order: one all-gather a forward bucket, one reduce-scatter a backward
+    bucket, each with exactly the operand bytes."""
+    from repro_torch.analysis import conformance
+    want = [["all-gather", b]
+            for b in conformance.expected_ag_bytes(specs, plan)] + \
+        [["reduce-scatter", b]
+         for b in conformance.expected_rs_bytes(specs, plan)]
+    if records != want:
+        raise AssertionError(f"verify {tag}: recorded {records} != the "
+                             f"FlatSpec math {want}")
+    ag = [b for k, b in records if k == "all-gather"]
+    rs = [b for k, b in records if k == "reduce-scatter"]
+    say("verify", f"{tag}: {len(ag)} all-gathers {ag} B (buckets "
+                  f"{[len(b) for b in plan.forward]}) and {len(rs)} "
+                  f"reduce-scatters {rs} B (buckets "
+                  f"{[len(b) for b in plan.backward]}) == the FlatSpec "
+                  f"math")
+
+
+def phase_verify(smi: str) -> None:
+    """``verify_runtime`` on the card: full-width granite-3-2b under
+    ``zero``, ``ps`` (int8 and top-k pushes), ``dynamic`` and ``pipeline``,
+    then the ten smoke configs, each with no finding; the recorded steps'
+    collectives against the FlatSpec math and their kernels' launches
+    against the plan; then one mutation that must be flagged."""
+    from repro_torch.analysis import CollectiveRecord, verify_schedule
+    from repro_torch.core import BucketPlan
+    from repro_torch.runtime import (CompressionConfig, RuntimeConfig,
+                                     ScheduleConfig)
+    drop_group()
+    t0 = time.perf_counter()
+    zero = RuntimeConfig(**MAIN, schedule=ScheduleConfig(strategy="dynacomm"))
+    arch = arch_of(zero)
+    specs = flat_specs(arch)
+    info, counts = verified("zero (full width)", zero)
+    zero_plan = as_plan(info["plan"])
+    zero_step = info["collectives"]["step"]
+    held_to_the_plan("zero", zero_step, zero_plan, specs)
+    expect = expected_launches(zero_plan, arch, (), steps=1)
+    if counts != expect:
+        raise AssertionError(f"verify zero: launches {counts} != {expect}")
+    say("verify", f"zero: launches of the recorded step {counts} == plan")
+
+    for scheme, names in PS_SCHEMES:
+        info, counts = verified(f"ps/{scheme} (full width)", RuntimeConfig(
+            **PS, compression=CompressionConfig(
+                scheme, topk_fraction=TOPK_FRACTION if scheme == "topk"
+                else None)))
+        plan = as_plan(info["plan"])
+        held_to_the_plan(f"ps/{scheme}", info["collectives"]["step"], plan,
+                         specs)
+        expect = expected_launches(plan, arch, names, steps=1)
+        if counts != expect:
+            raise AssertionError(f"verify ps/{scheme}: launches {counts} "
+                                 f"!= {expect}")
+        say("verify", f"ps/{scheme}: wire model and ledger exact; "
+                      f"launches {counts} == plan")
+
+    info, counts = verified("dynamic (full width)",
+                            dynamic_config("dynamic"))
+    plans = [as_plan(p) for p in info["plans"]]
+    if tuple(sizes(p) for p in plans) != DYNAMIC_PLANS or \
+            info["traces"] != 2:
+        raise AssertionError(f"verify dynamic: plans {info['plans']}, "
+                             f"traces {info['traces']}")
+    for i, plan in enumerate(plans):
+        held_to_the_plan(f"dynamic plan {i} (traced once)",
+                         info["collectives"][f"plan {i}"], plan, specs)
+    steps = info["steps_run"]
+    expect = launches_of_plans([(plans[0], 2), (plans[1], steps - 2)], arch)
+    if counts != expect:
+        raise AssertionError(f"verify dynamic: launches {counts} != "
+                             f"{expect}")
+    say("verify", f"dynamic: {steps} steps, launches {counts} == the plans'")
+
+    info, counts = verified("pipeline (full width)", pipeline_config())
+    attn = sum(k in ("global_attn", "local_attn")
+               for k in arch.layer_kinds())
+    flash = 3 * attn * (info["microbatches"] + 1)
+    if any(info["collectives"].values()) or \
+            counts.pop("flash_attention_fwd") != flash or \
+            any(counts.values()):
+        raise AssertionError(f"verify pipeline: {info['collectives']}, "
+                             f"flash {flash} and nothing else wanted, "
+                             f"other launches {counts}")
+    say("verify", f"pipeline: every stage trace empty, partition "
+                  f"{info['partition']['segments']}; flash {flash} == 3 x "
+                  f"{attn} blocks x ({info['microbatches']} micro-batches "
+                  f"of the step + 1 of the stage traces), no other kernel")
+
+    cfgs = ROOT / "examples" / "runtime_configs"
+    for name in SMOKE_CONFIGS:
+        drop_group()
+        verified(f"{name}.json (reduced)",
+                 RuntimeConfig.load(str(cfgs / f"{name}.json")))
+    drop_group()
+
+    # the mutation: the full-width zero step's trace against its plan with
+    # one pull bucket split in two must be flagged
+    trace = [CollectiveRecord(kind=k, name=f"{k}.{i}", bytes=b,
+                              dtype="float32", group_size=1)
+             for i, (k, b) in enumerate(zero_step)]
+    i = next(i for i, b in enumerate(zero_plan.forward) if len(b) > 1)
+    b = zero_plan.forward[i]
+    split = BucketPlan(forward=zero_plan.forward[:i] + (b[:1], b[1:]) +
+                       zero_plan.forward[i + 1:],
+                       backward=zero_plan.backward)
+    codes = sorted({f.code for f in verify_schedule(trace, split, specs)})
+    if codes != ["SCHED-AG-BYTES", "SCHED-AG-COUNT"]:
+        raise AssertionError(f"verify: the split plan gave {codes}")
+    say("verify", f"mutation: zero's trace against pull buckets "
+                  f"{[len(x) for x in split.forward]} (bucket {i} split) "
+                  f"flagged {codes}")
+    say("verify", f"phase {time.perf_counter() - t0:.1f} s; {smi}")
+
 def traced(fn) -> list:
     """``fn()`` under ``torch.profiler``, the card idle before and after
     the window so that it holds whole calls: the device rows of
@@ -2656,6 +2835,7 @@ def main(argv=None) -> None:
     timed("fleet", phase_fleet, smi)
     timed("pipeline", phase_pipeline, args.profile, smi,
           main_run["losses"])
+    timed("verify", phase_verify, smi)
     timed("configs", phase_configs)
     say("time", f"phase wall seconds {walls}; "
                 f"{time.perf_counter() - start:.1f} s since the start")

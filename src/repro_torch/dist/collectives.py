@@ -33,9 +33,9 @@ from repro_torch.kernels.bucket_pack.ops import pack_ragged, unpack_columns
 
 FLAT_DTYPE = torch.float32
 
-# The bucket collectives launched so far, counted where they launch (the
-# port has no HLO to count them in): the plan-step cache reads them around
-# a plan's first step.
+# The bucket collectives launched so far, counted where they launch: an
+# always-on count (``repro_torch.analysis.trace.record_collectives``
+# records the calls themselves, with their operand bytes, inside a window).
 LAUNCHES: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0}
 
 

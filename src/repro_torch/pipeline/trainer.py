@@ -51,6 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.analysis.trace import record_collectives
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.costmodel import LayerCosts
 from repro_torch.dist.collectives import (FlatSpec, flatten_tree,
@@ -338,6 +339,49 @@ class PipelineTrainer:
         if embed_from_head is not None:
             embed_from_head = flatten_tree(embed_from_head, self.specs[0])
         return ct_out, embed_from_head
+
+    def stage_traces(self, state, batch) -> List[Tuple[list, list]]:
+        """Each stage's (forward, backward) collective trace.
+
+        Runs the first micro-batch of ``batch`` through every stage's
+        forward, then every stage's backward, each under
+        :func:`~repro_torch.analysis.trace.record_collectives` (the port
+        has no per-stage program to lower, as the reference's
+        ``stage_hlo`` does).  The conformance pass asserts each trace
+        empty: every inter-stage byte moves through the boundary buffers
+        the ledger accounts, never through a collective.  The gradients go
+        to a scratch accumulator: the state, the ledger and the step count
+        are left as they were."""
+        self.prepare(batch)
+        S = self.num_stages
+        mb = self._split(batch)[0]
+        mbs = [self._put(mb, s) if s in (0, S - 1) else None
+               for s in range(S)]
+        den = self._mask_den(self._put(batch, S - 1))
+        stage_trees = [self._stage_trees(state, s) for s in range(S)]
+        embed_tree = stage_trees[0][0] if S == 1 else unflatten_tree(
+            self._put(state["flat_params"][0], S - 1), self.specs[0])
+        fwd, h_in, h = [], [], None
+        with torch.no_grad():
+            for s in range(S):
+                h_in.append(h)
+                with record_collectives() as trace:
+                    out, _ = self._stage_forward(s, stage_trees[s], h,
+                                                 mbs[s], embed_tree)
+                fwd.append(trace)
+                h = self._put(out, s + 1) if s < S - 1 else None
+        acc: List[Optional[torch.Tensor]] = [None] * self.num_layers
+        bwd: List[list] = [[] for _ in range(S)]
+        ct = None
+        for s in reversed(range(S)):
+            with record_collectives() as trace:
+                ct, _ = self._stage_backward(s, stage_trees[s], h_in[s],
+                                             mbs[s], embed_tree, den, ct,
+                                             acc)
+            bwd[s] = trace
+            if s > 0:
+                ct = self._put(ct, s - 1)
+        return list(zip(fwd, bwd))
 
     # ------------------------------------------------------------------
     # the train step (host-driven per-stage pipeline)

@@ -7,14 +7,15 @@ The port of the reference's ``runtime/replan.py``:
   keeps, per distinct plan, the step of the trainer's ``with_plan(plan)``
   copy (a shallow copy sharing the flat layouts; the training state stays
   with the caller, so no second copy of weights, moments, residuals or
-  gathered buffers is held) and the plan's ``(all-gather,
-  reduce-scatter)`` counts, read from the bucket collectives' launch
-  counters (:func:`repro_torch.dist.collectives.collective_counts`) around
-  the plan's first step where the reference counts them in the compiled
-  HLO.  ``traces`` counts first uses of a plan and ``hits`` plan swaps
-  served from the cache, as the reference's compile misses and hits.  The reference's HLO text
-  retention (``hlo_text`` / ``hlo_retention`` / ``hlo_evictions``) has no
-  counterpart without an HLO and is dropped;
+  gathered buffers is held) and the trace of the plan's first step
+  (:func:`repro_torch.analysis.trace.record_collectives`: every
+  collective it ran, with its operand bytes), where the reference keeps
+  the compiled HLO; ``trace_of(plan)`` takes the place of ``hlo_text``
+  and ``collective_counts(plan)`` of ``hlo_counts``.  ``traces`` counts
+  first uses of a plan and ``hits`` plan swaps served from the cache, as
+  the reference's compile misses and hits.  The reference's bounded HLO
+  text retention (``hlo_retention`` / ``hlo_evictions``) is dropped: a
+  trace is a few records a bucket;
 * :class:`RescheduleEvent` — one scheduling pass (paper Table I
   bookkeeping: scheduling wall time + the overhead-hidden check against
   the Δt + gt¹ idle window); ``retraced`` is True on a plan's first
@@ -33,9 +34,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.analysis.trace import (CollectiveRecord, collective_counts,
+                                        record_collectives)
 from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.core.buckets import BucketPlan
-from repro_torch.dist.collectives import collective_counts
 
 
 def sequential_plan(num_layers: int) -> BucketPlan:
@@ -63,7 +65,7 @@ class PlanStepCache:
 
     def __init__(self) -> None:
         self._steps: Dict[BucketPlan, Callable] = {}
-        self._counts: Dict[BucketPlan, Tuple[int, int]] = {}
+        self._traces: Dict[BucketPlan, Tuple[CollectiveRecord, ...]] = {}
         self.traces = 0                # first uses of a plan
         self.hits = 0                  # plan *swaps* served from the cache
 
@@ -71,12 +73,17 @@ class PlanStepCache:
     def plans(self) -> Tuple[BucketPlan, ...]:
         return tuple(self._steps)
 
+    def trace_of(self, plan: BucketPlan) -> Tuple[CollectiveRecord, ...]:
+        """The collectives a cached plan's first step ran."""
+        if plan not in self._traces:
+            raise KeyError(f"plan {plan} has not run a step yet")
+        return self._traces[plan]
+
     def collective_counts(self, plan: BucketPlan) -> Tuple[int, int]:
         """(#all-gathers, #reduce-scatters) of one step of a cached plan,
-        as its first step launched them."""
-        if plan not in self._counts:
-            raise KeyError(f"plan {plan} has not run a step yet")
-        return self._counts[plan]
+        as its first step ran them."""
+        counts = collective_counts(self.trace_of(plan))
+        return counts["all-gather"], counts["reduce-scatter"]
 
     def step_for(self, plan: BucketPlan, build_step: Callable[[], Callable],
                  *, count_hit: bool) -> Tuple[Callable, bool]:
@@ -92,12 +99,11 @@ class PlanStepCache:
         step = build_step()
 
         def step_fn(state, batch):
-            if plan in self._counts:
+            if plan in self._traces:
                 return step(state, batch)
-            before = collective_counts()
-            out = step(state, batch)
-            self._counts[plan] = tuple(
-                b - a for a, b in zip(before, collective_counts()))
+            with record_collectives() as trace:
+                out = step(state, batch)
+            self._traces[plan] = tuple(trace)
             return out
 
         self._steps[plan] = step_fn

@@ -686,3 +686,47 @@ def test_pipeline_stage_devices_on_one_card_are_bitwise_none(cuda):
     assert runs[0][0] == runs[1][0]
     for a, b in zip(runs[0][1], runs[1][1]):
         _assert_bitwise(a, b)
+
+
+def test_verify_runtime_on_the_card_and_recording_never_syncs(cuda):
+    """Reduced ``zero.json`` verified on the card (one NCCL rank): no
+    finding.  Then the bucket collectives and an all-reduce on card
+    tensors, recorded under ``set_sync_debug_mode("error")`` (warmed up
+    first, so the NCCL communicator exists): the recorder reads sizes
+    only, and nothing in the window waits for the stream."""
+    from repro_torch.analysis import record_collectives
+    from repro_torch.analysis.runtime_verify import verify_runtime
+    from repro_torch.dist.collectives import (gather_bucket, make_flat_spec,
+                                              reduce_scatter_bucket)
+    from repro_torch.runtime import RuntimeConfig
+    try:
+        findings, info = verify_runtime(RuntimeConfig.load(os.path.join(
+            ROOT, "examples", "runtime_configs", "zero.json")))
+        assert findings == [], [f.format() for f in findings]
+        assert info["steps_run"] == 1
+        specs = [make_flat_spec({"w": torch.empty(s)}, 1)
+                 for s in ((300, 7), (5,))]
+        shards = [torch.randn(s.shard_size, device=cuda) for s in specs]
+        grads = {0: {"w": torch.randn(300, 7, device=cuda)},
+                 1: {"w": torch.randn(5, device=cuda)}}
+
+        def calls():
+            gather_bucket(shards, specs, (0, 1))
+            reduce_scatter_bucket(grads, specs, (1, 0))
+            torch.distributed.all_reduce(shards[1])
+
+        calls()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with record_collectives() as trace:
+                calls()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert [(r.kind, r.bytes, r.group_size) for r in trace] == [
+            ("all-gather", 4 * 2105, 1), ("reduce-scatter", 4 * 2105, 1),
+            ("all-reduce", 20, 1)]
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
