@@ -82,7 +82,25 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    of full width: losses and parameters bitwise across S at M = 1,
    between S = 2 and 4 at M = 2, between gpipe and 1f1b, and with
    ``stage_devices`` on the card against ``None``;
-10. ``verify``: the verification layer (``repro_torch.analysis``) on the
+10. ``moe``: the MoE MLP at granite-moe-1b-a400m's full width (24
+   layers, d_model 1024, 16/8 heads of 64, 32 experts of d_ff 512, top-8,
+   gated SiLU, tied head): flash against its plain version at GQA 16/8
+   (B = 2, timed as the record ``flash_attention_fwd@moe``, and the
+   pipeline's B = 1); bucket_pack / bucket_unpack bitwise against their
+   plain versions at the plan's pull and push buckets; 3 ``zero`` steps
+   under the DynaComm plan (asserted against the port's own ``core``),
+   launches, seconds a step, peak memory
+   against the reckoning, and the same steps under the other three
+   strategies, losses bitwise; the aux witness at 2 blocks (the ZeRO
+   step's gradients against autograd of ``train_loss``, each leaf within
+   4e-6 of its own largest magnitude, and the router's gradient moved at
+   ``aux_weight = 0``); ``pipeline`` (S = 2, M = 2,
+   1f1b, 3 steps: partition, ledger, flash launches and no other kernel,
+   no collective, peak, losses against S = 1, M = 2 to rtol 1e-5; gpipe
+   against 1f1b bitwise at 4 blocks); then a reduced MoE that drops
+   tokens under ``zero.json`` and ``pipeline.json`` on the card against
+   the port on the CPU;
+11. ``verify``: the verification layer (``repro_torch.analysis``) on the
    card, one NCCL rank: ``verify_runtime`` on full-width granite-3-2b under
    ``zero`` (its recorded step's 5 all-gathers and 2 reduce-scatters
    against the FlatSpec byte math, its launches against the plan), ``ps``
@@ -93,7 +111,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    no finding.  Then one mutation: zero's recorded step against its plan
    with one pull bucket split must be flagged (``SCHED-AG-COUNT``,
    ``SCHED-AG-BYTES``);
-11. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
+12. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
    ``ps.json`` / ``dynamic.json`` / ``dynamic_ps.json`` /
    ``ps_async.json`` / ``ps_async_int8.json`` / ``dynamic_ps_async.json`` /
    ``fleet_async.json`` / ``pipeline.json`` smoke configs through the
@@ -181,6 +199,20 @@ PIPELINE_SEGMENTS = ((1, 22), (23, 42))   # S = 2 at 1e10 FLOP/s
 # gradient from the head and AdamW's temporaries, reckoned before the run
 PIPELINE_ACTIVATION_GIB = 2.0
 PIPELINE_WITNESS_LAYERS = 4   # the bitwise witness's one cut: depth
+MOE = dict(MAIN, arch="granite-moe-1b-a400m")
+MOE_STRATEGIES = ("sequential", "lbl", "ibatch")   # beside main's dynacomm
+MOE_PIPELINE_SEGMENTS = ((1, 14), (15, 26))   # S = 2 at 1e10 FLOP/s
+# the ZeRO step holds ~6 copies of the parameters at its peak (main: 55.89
+# GiB for 2.53 B parameters); beyond them, activations, the head's logits
+# and the dispatch buffers, reckoned before the run
+MOE_COPIES = 6
+MOE_ACTIVATION_GIB = 2.0
+MOE_AUX_LAYERS = 2        # the aux witness's one cut: depth
+MOE_WITNESS_LAYERS = 4    # the gpipe / 1f1b witness's one cut: depth
+# reduced granite-moe for card against CPU: 8 experts at top-2 and
+# capacity factor 0.5, so tokens drop (reduced() alone drops none)
+MOE_DROPPING = dict(num_experts=8, top_k=2, capacity_factor=0.5)
+GRAD_SCALE_RTOL = 4e-6    # a gradient leaf against its largest magnitude
 SMOKE_CONFIGS = ("zero", "local", "ps", "dynamic", "dynamic_ps", "ps_async",
                  "ps_async_int8", "dynamic_ps_async", "fleet_async",
                  "pipeline")
@@ -220,6 +252,8 @@ REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention.py:111",
     "flash_attention_fwd@hd256":
         "src/repro/kernels/flash_attention/flash_attention.py:111",
+    "flash_attention_fwd@moe":
+        "src/repro/kernels/flash_attention/flash_attention.py:111",
     "compress_quantize": "src/repro/kernels/compress/compress.py:81",
     "compress_dequantize": "src/repro/kernels/compress/compress.py:137",
     "compress_sparsify": "src/repro/kernels/compress/compress.py:178",
@@ -231,6 +265,8 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
            "flash_attention_fwd@hd256":
+               "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_fwd@moe":
                "src/repro_torch/csrc/flash_attention.cu",
            "compress_quantize": "src/repro_torch/csrc/compress.cu",
            "compress_dequantize": "src/repro_torch/csrc/compress.cu",
@@ -332,6 +368,16 @@ def assert_bitwise(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
         raise AssertionError(f"{what}: kernel and plain version differ")
 
 
+def leaf_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|got - want|`` over ``want``'s own largest magnitude:
+    a gradient leaf is a sum over tokens, so its roundoff scales with the
+    leaf, not with each entry (a router entry of 26 beside one of 0.16).
+    The floor is fp32's smallest normal: an all-zero leaf must come out
+    zero."""
+    scale = max(want.abs().max().item(), torch.finfo(torch.float32).tiny)
+    return (got.to(want.device) - want).abs().max().item() / scale
+
+
 # ---------------------------------------------------------------------------
 # phase 1: device and build
 # ---------------------------------------------------------------------------
@@ -389,8 +435,9 @@ def ptxas_usage(log: str) -> list:
 # ---------------------------------------------------------------------------
 
 
-def main_plan_specs():
-    """The main path's plan and flat layouts, priced without allocating."""
+def main_plan_specs(name: str = MAIN["arch"]):
+    """A path's plan and flat layouts at MAIN's batch and sequence (the
+    main path's model by default), priced without allocating."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
     from repro_torch.core import (DynaCommScheduler, costs_from_profiles,
@@ -400,7 +447,7 @@ def main_plan_specs():
                                     sched_layer_trees)
     from repro_torch.models.profiles import layer_profiles
     from repro_torch.runtime import MeasureConfig, NetworkConfig
-    arch = get_config(MAIN["arch"])
+    arch = get_config(name)
     costs = costs_from_profiles(
         layer_profiles(arch, InputShape("runtime", MAIN["seq"], MAIN["batch"],
                                         "train")),
@@ -2173,13 +2220,14 @@ def phase_fleet(smi: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def pipeline_config():
-    """The main path's model, batch and seed under ``pipeline.json``'s
-    pipeline block (S = 2, M = 2, 1f1b, 1 chunk) and network."""
+def pipeline_config(arch: str = MAIN["arch"]):
+    """The main path's batch and seed (its model by default) under
+    ``pipeline.json``'s pipeline block (S = 2, M = 2, 1f1b, 1 chunk) and
+    network."""
     from repro_torch.runtime import RuntimeConfig
     smoke = RuntimeConfig.load(str(ROOT / "examples" / "runtime_configs" /
                                    "pipeline.json"))
-    return RuntimeConfig(**dict(MAIN, runtime="pipeline"),
+    return RuntimeConfig(**dict(MAIN, runtime="pipeline", arch=arch),
                          pipeline=smoke.pipeline, schedule=smoke.schedule,
                          measure=smoke.measure)
 
@@ -2278,38 +2326,37 @@ def pipeline_witness(arch, dev) -> None:
                     f"rel gap {gap:.3g}")
 
 
-def phase_pipeline(profile: bool, smi: str, main_losses: list) -> None:
-    """``pipeline`` at granite-3-2b's full width, S = 2, M = 2, 1f1b:
-    flash at the path's shape, partition, ledger, flash launches, no
-    collective, peak memory, losses against the main path's, step seconds,
-    transfer plans and timeline; then the 4-block witness."""
+def run_pipeline_path(config, segments, phase: str) -> dict:
+    """Build ``config``'s pipeline on the card and run STEPS steps: the
+    partition against ``segments``, flash 3 times an attention block and
+    micro-batch (the forward, the stage's recompute, the VJP's recompute)
+    and no other kernel, no collective and no process group, the ledger
+    against its formula, finite losses, and the peak against 4 copies of
+    the parameters (parameters, mu, nu, gradient accumulators) +
+    PIPELINE_ACTIVATION_GIB + 1 GiB."""
     from repro_torch.dist.collectives import collective_counts
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.runtime import build_runtime
     drop_group()                    # the pipeline needs no process group
-    config = pipeline_config()
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rt = build_runtime(config)
     torch.cuda.synchronize()
     built = time.perf_counter() - t0
-    arch, tr = rt.arch, rt.trainer
-    part = rt.partition
-    if part.segments != PIPELINE_SEGMENTS:
-        raise AssertionError(f"pipeline: partition {part.segments} != "
-                             f"{PIPELINE_SEGMENTS}")
+    arch, tr, part = rt.arch, rt.trainer, rt.partition
+    if part.segments != segments:
+        raise AssertionError(f"{phase}: partition {part.segments} != "
+                             f"{segments}")
     gib = [sum(tr.specs[l].total for l in part.layers_of(s)) * 4 / 2**30
            for s in range(tr.num_stages)]
-    say("pipeline", f"{arch.name} full width, batch {config.batch} x seq "
-                    f"{config.seq}, S = {tr.num_stages}, M = "
-                    f"{tr.num_microbatches} ({tr.schedule_name}); partition "
-                    f"{part.segments}, loads "
-                    f"{[round(x, 2) for x in part.loads]} s at "
-                    f"{config.measure.compute_flops_per_s:g} FLOP/s; stage "
-                    f"parameters {[round(g, 2) for g in gib]} GiB; built in "
-                    f"{built:.1f} s")
-    check_pipeline_flash(arch, config, tr.device)
+    say(phase, f"{arch.name} full width, batch {config.batch} x seq "
+               f"{config.seq}, S = {tr.num_stages}, M = "
+               f"{tr.num_microbatches} ({tr.schedule_name}); partition "
+               f"{part.segments}, loads {[round(x, 2) for x in part.loads]}"
+               f" s at {config.measure.compute_flops_per_s:g} FLOP/s; stage "
+               f"parameters {[round(g, 2) for g in gib]} GiB; built in "
+               f"{built:.1f} s")
     collectives = collective_counts()
     reset_launch_counts()
     losses, secs = timed_steps(rt, STEPS)
@@ -2317,67 +2364,360 @@ def phase_pipeline(profile: bool, smi: str, main_losses: list) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     if collective_counts() != collectives or \
             torch.distributed.is_initialized():
-        raise AssertionError("pipeline: a collective or a process group")
+        raise AssertionError(f"{phase}: a collective or a process group")
     attn = sum(k in ("global_attn", "local_attn")
                for k in arch.layer_kinds())
     flash = 3 * attn * tr.num_microbatches * STEPS
     if counts.pop("flash_attention_fwd") != flash or any(counts.values()):
-        raise AssertionError(f"pipeline: launches {launch_counts()}, want "
+        raise AssertionError(f"{phase}: launches {launch_counts()}, want "
                              f"flash {flash} and nothing else")
     led, want = rt.ledger, pipeline_ledger_formula(tr, STEPS)
     if {k: led[k] for k in want} != want or \
             led["boundary_pull_bytes"].keys() != {0, -1}:
-        raise AssertionError(f"pipeline: ledger {led} != the formula {want}")
+        raise AssertionError(f"{phase}: ledger {led} != the formula {want}")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"pipeline: non-finite losses {losses}")
-    # the main path's step on the same seed and batches; the micro-batches
-    # only regroup the sums
+        raise AssertionError(f"{phase}: non-finite losses {losses}")
+    copy = sum(s.total * 4 for s in tr.specs) / 2**30
+    reckoned = 4 * copy + PIPELINE_ACTIVATION_GIB
+    if not peak <= reckoned + 1.0:
+        raise AssertionError(f"{phase}: peak {peak:.2f} GiB > the "
+                             f"reckoning {reckoned:.2f} + 1 GiB")
+    say(phase, f"ledger over {STEPS} steps {want} == the formula "
+               f"(activations {tr.activation_bytes()} B a micro-batch at "
+               f"each boundary, the embedding {tr.specs[0].total * 4} B); "
+               f"no collective ({collectives} before and after), no "
+               f"process group")
+    say(phase, f"launches: flash {flash} == 3 x {attn} attention blocks x "
+               f"{tr.num_microbatches} micro-batches x {STEPS} steps (the "
+               f"forward, the stage's recompute, the VJP's recompute); no "
+               f"other kernel of csrc/")
+    steady = sum(secs[1:]) / len(secs[1:])
+    tokens = config.batch * config.seq
+    say(phase, f"step seconds {[round(x, 4) for x in secs]}: first "
+               f"{secs[0]:.3f} s, steady {steady * 1e3:.1f} ms/step (steps "
+               f"2-{STEPS}), {tokens / steady:.1f} tokens/s; peak "
+               f"{peak:.2f} GiB against the reckoning {reckoned:.2f} "
+               f"(parameters, mu, nu and gradient accumulators, 4 x "
+               f"{copy:.2f} GiB, + {PIPELINE_ACTIVATION_GIB} GiB)")
+    return dict(rt=rt, losses=losses, steady=steady, peak=peak)
+
+
+def phase_pipeline(profile: bool, smi: str, main_losses: list) -> None:
+    """``pipeline`` at granite-3-2b's full width, S = 2, M = 2, 1f1b:
+    flash at the path's shape, then ``run_pipeline_path``'s checks, the
+    losses against the main path's, transfer plans and timeline; then the
+    4-block witness."""
+    from repro_torch.configs import get_config
+    config = pipeline_config()
+    dev = torch.device("cuda")
+    check_pipeline_flash(get_config(config.arch), config, dev)
+    run = run_pipeline_path(config, PIPELINE_SEGMENTS, "pipeline")
+    rt, losses = run["rt"], run["losses"]
+    arch = rt.arch
     gap = max(abs(a - b) / abs(b) for a, b in zip(losses, main_losses))
     if not gap <= LOSS_RTOL:
         raise AssertionError(f"pipeline: losses {losses} vs the main path's "
                              f"{main_losses}: rel gap {gap:.3g} > "
                              f"{LOSS_RTOL}")
-    copy = sum(s.total * 4 for s in tr.specs) / 2**30
-    reckoned = 4 * copy + PIPELINE_ACTIVATION_GIB
-    if not peak <= reckoned + 1.0:
-        raise AssertionError(f"pipeline: peak {peak:.2f} GiB > the "
-                             f"reckoning {reckoned:.2f} + 1 GiB")
     plan, tl = rt.trainer.transfer_plans()[0], rt.timeline()
-    steady = sum(secs[1:]) / len(secs[1:])
-    tokens = config.batch * config.seq
     say("pipeline", f"losses {losses}; the main path's {main_losses}, "
-                    f"rel gap {gap:.3g} (rtol {LOSS_RTOL})")
-    say("pipeline", f"ledger over {STEPS} steps {want} == the formula "
-                    f"(activations {tr.activation_bytes()} B a micro-batch "
-                    f"at each boundary, the embedding "
-                    f"{tr.specs[0].total * 4} B); no collective "
-                    f"({collectives} before and after), no process group")
-    say("pipeline", f"launches: flash {flash} == 3 x {attn} attention "
-                    f"blocks x {tr.num_microbatches} micro-batches x "
-                    f"{STEPS} steps (forward, the stage's recompute, the "
-                    f"VJP's recompute); no other kernel of csrc/")
+                    f"rel gap {gap:.3g} (rtol {LOSS_RTOL}); {smi}")
     say("pipeline", f"boundary 0 plan {plan.decision}, speedup "
                     f"{plan.speedup:.4f} over the whole tensor; simulated "
                     f"makespan {tl.makespan:.3f} s, bubble fraction "
                     f"{tl.bubble_fraction:.4f} (tests/test_torch_pipeline"
                     f".py holds these to the reference's at this shape)")
-    say("pipeline", f"step seconds {[round(x, 4) for x in secs]}: first "
-                    f"{secs[0]:.3f} s, steady {steady * 1e3:.1f} ms/step "
-                    f"(steps 2-{STEPS}), {tokens / steady:.1f} tokens/s; "
-                    f"peak {peak:.2f} GiB against the reckoning "
-                    f"{reckoned:.2f} (parameters, mu, nu and gradient "
-                    f"accumulators, 4 x {copy:.2f} GiB, + "
-                    f"{PIPELINE_ACTIVATION_GIB} GiB); {smi}")
     if profile:
-        profile_step(rt, steady, "pipeline")
-    dev = tr.device
-    del rt, tr
+        profile_step(rt, run["steady"], "pipeline")
+    del rt, run
     free_cuda()
     pipeline_witness(arch, dev)
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the verification layer on the card
+# phase 10: the MoE MLP (granite-moe-1b-a400m) under zero and pipeline
+# ---------------------------------------------------------------------------
+
+
+def moe_flash(arch, dev) -> dict:
+    """Flash at the MoE paths' calls, before they run: GQA 16/8 at T =
+    1024, B = 2 (the ZeRO step's; checked and timed, a record of its own)
+    and B = 1 (the pipeline's micro-batch; checked)."""
+    from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
+                                                         flash_attention)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    with torch.no_grad():
+        rec = time_flash(gen, dev, arch, 0, "moe")
+        q, k, v = _qkv(gen, dev, 1, arch.num_heads, arch.num_kv_heads,
+                       MOE["seq"], arch.head_dim, torch.float32, True)
+        err = (flash_attention(q, k, v, True, 0, 0.0)
+               - _ref_fwd(q, k, v, True, 0, 0.0)).abs().max().item()
+    if not err <= F32_ATOL:
+        raise AssertionError(f"flash at the MoE pipeline's B = 1: max abs "
+                             f"err {err:.3g} > {F32_ATOL}")
+    say("moe", f"flash_attention_fwd at B = 1 (the pipeline's micro-batch),"
+               f" H={arch.num_heads}/{arch.num_kv_heads}, T={MOE['seq']}: "
+               f"max abs err {err:.3g} (atol {F32_ATOL})")
+    rec["max_abs_err_b1"] = err
+    return rec
+
+
+def moe_zero(profile: bool, smi: str) -> dict:
+    """STEPS ZeRO steps of full-width granite-moe-1b-a400m under the
+    DynaComm plan (asserted against the port's own ``core``), launches,
+    peak against the reckoning; then the same steps under the other three
+    strategies, losses bitwise."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import (RuntimeConfig, ScheduleConfig,
+                                     build_runtime)
+    config = RuntimeConfig(**MOE, schedule=ScheduleConfig(
+        strategy="dynacomm"))
+    _, want, specs = main_plan_specs(MOE["arch"])
+    check_replan_buckets(want, specs)
+    say("moe", f"bucket_pack / bucket_unpack bitwise against their plain "
+               f"versions at the plan's pull buckets "
+               f"{sorted({len(b) for b in want.forward})} and push buckets "
+               f"{sorted({len(b) for b in want.backward})} (layers)")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = build_runtime(config)
+    torch.cuda.synchronize()
+    arch, plan = rt.arch, rt.plan
+    if sizes(plan) != sizes(want):
+        raise AssertionError(f"moe: plan {sizes(plan)} != the port's core "
+                             f"{sizes(want)}")
+    say("moe", f"{arch.name}: {arch.num_layers} layers, d_model "
+               f"{arch.d_model}, heads {arch.num_heads}/{arch.num_kv_heads} "
+               f"x {arch.head_dim}, {arch.num_experts} experts of d_ff "
+               f"{arch.d_ff}, top-{arch.top_k}, {arch.activation} gated "
+               f"{arch.gated_mlp}, vocab {arch.vocab_size}; batch "
+               f"{config.batch} x seq {config.seq}; built in "
+               f"{time.perf_counter() - t0:.1f} s")
+    say("moe", f"plan (dynacomm): {len(plan.forward)} pull buckets "
+               f"{[len(b) for b in plan.forward]}, {len(plan.backward)} push "
+               f"buckets {[len(b) for b in plan.backward]} == the port's "
+               f"core")
+    reset_launch_counts()
+    losses, secs = timed_steps(rt, STEPS)
+    counts = launch_counts()
+    expect = expected_launches(plan, arch, ())
+    if counts != expect:
+        raise AssertionError(f"moe: launches {counts} != expected {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"moe: non-finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    copy = sum(s.total * 4 for s in specs) / 2**30
+    reckoned = MOE_COPIES * copy + MOE_ACTIVATION_GIB
+    if not peak <= reckoned:
+        raise AssertionError(f"moe: peak {peak:.2f} GiB > the reckoning "
+                             f"{reckoned:.2f}")
+    steady = sum(secs[1:]) / len(secs[1:])
+    tokens = config.batch * config.seq
+    say("moe", f"zero losses {losses}")
+    say("moe", f"zero step seconds {[round(x, 4) for x in secs]}; steady "
+               f"{steady * 1e3:.1f} ms/step (steps 2-{STEPS}), "
+               f"{tokens / steady:.1f} tokens/s; peak {peak:.2f} GiB "
+               f"against the reckoning {reckoned:.2f} ({MOE_COPIES} x "
+               f"{copy:.3f} GiB + {MOE_ACTIVATION_GIB}); {smi}")
+    say("moe", f"zero launches over {STEPS} steps {counts} == plan (flash "
+               f"2 x {arch.num_layers} x {STEPS})")
+    if profile:
+        profile_step(rt, steady, "profile moe")
+    del rt
+    free_cuda()
+    for strategy in MOE_STRATEGIES:
+        rt = build_runtime(dataclasses.replace(
+            config, schedule=ScheduleConfig(strategy=strategy)))
+        got, other = rt.fit(STEPS), sizes(rt.plan)
+        del rt
+        free_cuda()
+        if got != losses:
+            raise AssertionError(f"moe: {strategy} losses {got} != "
+                                 f"dynacomm's {losses}")
+        say("moe", f"zero/{strategy}: plan {other}, losses bitwise "
+                   f"dynacomm's")
+    return counts
+
+
+def moe_aux_witness(arch, dev, seq: int = MOE["seq"],
+                    batch: int = MOE["batch"]) -> dict:
+    """At MOE_AUX_LAYERS blocks of ``arch``: the ZeRO step's gradients (an
+    optimizer that records them) against ``torch.autograd`` of
+    ``train_loss`` on the same device and inputs, each leaf within
+    GRAD_SCALE_RTOL of its own largest magnitude; then the router's
+    gradient at ``aux_weight = 0`` moves by more than twice that.  Raises
+    on a failure; returns the worst gap, block 1's router gap and its
+    move.  The caller drops the process group the trainer made."""
+    from repro_torch import tree
+    from repro_torch.core import BucketPlan
+    from repro_torch.data.pipeline import SyntheticText
+    from repro_torch.dist.collectives import unflatten_tree
+    from repro_torch.dist.zero import ZeroTrainer
+    from repro_torch.models import (num_sched_layers, params_from_sched_layers,
+                                    sched_layer_trees, train_loss)
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import Optimizer
+    small = dataclasses.replace(arch, num_layers=MOE_AUX_LAYERS)
+    Ls = num_sched_layers(small)
+    plan = BucketPlan(forward=(tuple(range(Ls)),),
+                      backward=(tuple(reversed(range(Ls))),))
+    data = {k: v.to(dev) for k, v in SyntheticText(
+        small.vocab_size, seq, batch, seed=0).batch(0).items()}
+
+    def zero_grads(aux_weight):
+        seen, base = [], adamw(3e-4)
+
+        def update(grads, state, params):
+            seen.extend(g.clone() for g in grads)
+            return base.update(grads, state, params)
+        tr = ZeroTrainer(cfg=small, plan=plan, device=dev,
+                         optimizer=Optimizer(init=base.init, update=update),
+                         aux_weight=aux_weight)
+        state = tr.init_state(torch.Generator(device=dev).manual_seed(0))
+        layers = [tree.tree_map(torch.clone, t) for t in
+                  sched_layer_trees(tr.params_from_state(state))]
+        tr.step(state, data)
+        del state
+        return tr.specs, layers, [unflatten_tree(g, spec)
+                                  for g, spec in zip(seen, tr.specs)]
+
+    _, layers, got = zero_grads(0.01)
+    params = [tree.tree_map(lambda x: x.requires_grad_(), t) for t in layers]
+    loss = train_loss(small, params_from_sched_layers(params), data,
+                      aux_weight=0.01)
+    want = list(torch.autograd.grad(
+        loss, [x for t in params for x in tree.leaves(t)]))
+    gaps = {}
+    for l, g in enumerate(got):
+        for path, leaf in tree.leaves_with_paths(g):
+            gaps[l, path] = leaf_gap(leaf, want.pop(0))
+            if not gaps[l, path] <= GRAD_SCALE_RTOL:
+                raise AssertionError(f"moe aux witness: layer {l} {path}: "
+                                     f"{gaps[l, path]:.3g} of the leaf's "
+                                     f"scale from autograd's gradient")
+    router = got[1]["moe"]["router"]
+    _, _, got0 = zero_grads(0.0)
+    moved = leaf_gap(router, got0[1]["moe"]["router"])
+    if not moved > 2 * GRAD_SCALE_RTOL:
+        raise AssertionError(f"moe aux witness: the router's gradient moved "
+                             f"{moved:.3g} of its scale without the aux "
+                             f"term: the term is not carried")
+    del layers, params, got, got0, want
+    return dict(worst=max(gaps.values()), moved=moved,
+                router=gaps[1, ("moe", "router")])
+
+
+def moe_pipeline(profile: bool, smi: str) -> None:
+    """``pipeline`` at granite-moe's full width under ``pipeline.json``'s
+    block (``run_pipeline_path``'s checks); losses against S = 1, M = 2
+    (the aux and embedding grouping: roundoff); then gpipe against 1f1b
+    bitwise at MOE_WITNESS_LAYERS blocks."""
+    from repro_torch.data.pipeline import SyntheticText
+    from repro_torch.optim import adamw
+    from repro_torch.pipeline import PipelineTrainer
+    from repro_torch.runtime import build_runtime
+    config = pipeline_config(MOE["arch"])
+    run = run_pipeline_path(config, MOE_PIPELINE_SEGMENTS, "moe")
+    rt, losses = run["rt"], run["losses"]
+    arch, dev = rt.arch, rt.trainer.device
+    say("moe", f"pipeline losses {losses}; {smi}")
+    if profile:
+        profile_step(rt, run["steady"], "profile moe pipeline")
+    del rt, run
+    free_cuda()
+    one = build_runtime(dataclasses.replace(config, pipeline=dataclasses
+                                            .replace(config.pipeline,
+                                                     stages=1)))
+    ones = one.fit(STEPS)
+    del one
+    free_cuda()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ones))
+    if not gap <= LOSS_RTOL:
+        raise AssertionError(f"moe pipeline: S = 2 {losses} vs S = 1 "
+                             f"{ones}: rel gap {gap:.3g} > {LOSS_RTOL}")
+    say("moe", f"pipeline S = 1, M = 2: {ones}; rel gap {gap:.3g} to S = 2 "
+               f"(rtol {LOSS_RTOL}: the aux and tied-embedding sums group "
+               f"by stage)")
+
+    small = dataclasses.replace(arch, num_layers=MOE_WITNESS_LAYERS)
+    data = SyntheticText(small.vocab_size, MOE["seq"], MOE["batch"], seed=0)
+
+    def witness(name):
+        ptr = PipelineTrainer(cfg=small, optimizer=adamw(3e-4), device=dev,
+                              num_stages=2, num_microbatches=2,
+                              schedule_name=name)
+        state = ptr.init_state(torch.Generator(device=dev).manual_seed(0))
+        out = []
+        for i in range(2):
+            state, loss = ptr.step(state, data.batch(i))
+            out.append(float(loss))
+        flats = [f.clone() for f in state["flat_params"]]
+        del state, ptr
+        free_cuda()
+        return out, flats
+    a, b = witness("1f1b"), witness("gpipe")
+    if a[0] != b[0] or any(not torch.equal(bits(x), bits(y))
+                           for x, y in zip(a[1], b[1])):
+        raise AssertionError(f"moe pipeline witness: gpipe {b[0]} vs 1f1b "
+                             f"{a[0]}")
+    say("moe", f"pipeline witness at {MOE_WITNESS_LAYERS} blocks of full "
+               f"width, 2 steps: gpipe and 1f1b losses and parameters "
+               f"bitwise ({a[0]})")
+
+
+def moe_card_against_cpu() -> None:
+    """Reduced granite-moe with tokens dropping (MOE_DROPPING) under
+    ``zero.json`` and ``pipeline.json``: the card against the port on the
+    CPU from one initial state."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import RuntimeConfig
+    model = dataclasses.replace(get_config(MOE["arch"]).reduced(),
+                                **MOE_DROPPING)
+    cfgs = ROOT / "examples" / "runtime_configs"
+    for name in ("zero", "pipeline"):
+        gap, card, cpu = card_against_cpu(
+            RuntimeConfig.load(str(cfgs / f"{name}.json")), model)
+        if not gap <= CARD_CPU_RTOL:
+            raise AssertionError(f"moe {name}.json: card {card} vs CPU "
+                                 f"{cpu}: rel gap {gap:.3g} > "
+                                 f"{CARD_CPU_RTOL}")
+        say("moe", f"reduced MoE ({MOE_DROPPING}) under {name}.json from "
+                   f"one initial state: card {card}, CPU {cpu}; rel gap "
+                   f"{gap:.3g} (rtol {CARD_CPU_RTOL})")
+    drop_group()
+
+
+def phase_moe(profile: bool, smi: str) -> tuple:
+    """The MoE MLP at granite-moe-1b-a400m's full width: flash at its
+    shapes, ``zero`` (3 steps, four strategies), the aux witness,
+    ``pipeline`` and card against CPU.  Returns the flash record and the
+    ZeRO path's launches."""
+    from repro_torch.configs import get_config
+    arch = get_config(MOE["arch"])
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    rec = moe_flash(arch, dev)
+    free_cuda()
+    counts = moe_zero(profile, smi)
+    w = moe_aux_witness(arch, dev)
+    drop_group()
+    free_cuda()
+    say("moe", f"aux witness at {MOE_AUX_LAYERS} blocks of full width: the "
+               f"ZeRO step's gradients (the block pull-back with (ct, "
+               f"0.01)) within {w['worst']:.3g} of each leaf's largest "
+               f"magnitude of autograd's train_loss gradient (rtol "
+               f"{GRAD_SCALE_RTOL}), block 1's router {w['router']:.3g}; "
+               f"at aux_weight 0 block 1's router "
+               f"gradient moves {w['moved']:.3g} of its scale")
+    moe_pipeline(profile, smi)
+    moe_card_against_cpu()
+    say("moe", f"phase {time.perf_counter() - t0:.1f} s; {smi}")
+    return rec, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the verification layer on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2808,9 +3148,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one extra step of the main path, of each "
-                         "ps path, of the hybrid path and of the pipeline, "
-                         "and one extra push of ps-async with "
-                         "torch.profiler")
+                         "ps path, of the hybrid path, of the pipeline and "
+                         "of the two MoE paths, and one extra push of "
+                         "ps-async with torch.profiler")
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -2835,6 +3175,7 @@ def main(argv=None) -> None:
     timed("fleet", phase_fleet, smi)
     timed("pipeline", phase_pipeline, args.profile, smi,
           main_run["losses"])
+    moe_flash_rec, moe_counts = timed("moe", phase_moe, args.profile, smi)
     timed("verify", phase_verify, smi)
     timed("configs", phase_configs)
     say("time", f"phase wall seconds {walls}; "
@@ -2852,6 +3193,12 @@ def main(argv=None) -> None:
         counts[name] = hybrid_counts[name]
     counts["flash_attention_fwd@hd256"] = \
         hybrid_counts["flash_attention_fwd"]
+    # the MoE path's ZeRO step: flash at GQA 16/8 a record of its own, the
+    # bucket copies' launches beside the main path's
+    records["flash_attention_fwd@moe"] = moe_flash_rec
+    counts["flash_attention_fwd@moe"] = moe_counts["flash_attention_fwd"]
+    for name in ("bucket_pack", "bucket_unpack"):
+        records[name]["moe_launches"] = moe_counts[name]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

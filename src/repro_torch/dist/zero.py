@@ -71,11 +71,22 @@ def default_group(device: torch.device):
 
 def _vjp(fn: Callable, primals: Sequence[Any], cotangent) -> List[Any]:
     """Recompute ``fn(*primals)`` under autograd and pull ``cotangent``
-    back to every primal tree (zeros where a primal is unused)."""
+    back to every primal tree (zeros where a primal is unused).
+
+    ``fn`` may return a tuple of tensors, pulled back with a tuple of
+    cotangents, as ``jax.vjp`` does.  A cotangent of ``None`` leaves its
+    output out: a dense block's aux is a constant zero with no graph,
+    which ``torch.autograd.grad`` refuses.  Every other output must carry
+    a graph, or ``torch.autograd.grad`` raises: an MoE aux that lost its
+    graph fails loudly instead of dropping the router's term."""
     vars_ = [tree.tree_map(lambda x: x.detach().requires_grad_(), p)
              for p in primals]
     with torch.enable_grad():
         out = fn(*vars_)
+    if isinstance(out, tuple):
+        pairs = [(o, c) for o, c in zip(out, cotangent) if c is not None]
+        out = [o for o, _ in pairs]
+        cotangent = [c for _, c in pairs]
     flat = [leaf for v in vars_ for leaf in tree.leaves(v)]
     grads = list(torch.autograd.grad(out, flat, grad_outputs=cotangent,
                                      allow_unused=True,
@@ -301,6 +312,9 @@ class ZeroTrainer:
             del h
 
         # ---- backward: per-layer VJPs, one reduce-scatter per bucket ----
+        aux_ct = (torch.full((), self.aux_weight, dtype=torch.float32,
+                             device=self.device)
+                  if self.cfg.is_moe else None)
         grad_shards: List[Optional[torch.Tensor]] = [None] * Ls
         embed_from_head = None     # tied-head contribution to the embedding
         ct_h = None                # cotangent w.r.t. the current activation
@@ -327,9 +341,8 @@ class ZeroTrainer:
                 else:
                     kind = kinds[l - 1]
                     g_block, ct_h = _vjp(
-                        lambda p, hh, _k=kind: self._apply_block(p, hh,
-                                                                 _k)[0],
-                        (full[l], acts.pop(l)), ct_h)
+                        lambda p, hh, _k=kind: self._apply_block(p, hh, _k),
+                        (full[l], acts.pop(l)), (ct_h, aux_ct))
                     bucket_grads[l] = g_block
                 if l != 0:
                     full.pop(l, None)     # this layer's weights are done

@@ -1,9 +1,10 @@
 """Per-layer block: init / apply for the attention kinds and the RG-LRU,
-with a dense MLP.
+with a dense MLP or, when the config has experts, the MoE MLP
+(``models/moe.py``), whose router load-balance loss is the block's aux.
 
 Every block is addressable individually — DynaComm schedules transmissions
-layer by layer.  The xLSTM kinds (mLSTM, sLSTM) and the MoE MLP wait for a
-later slice and raise ``NotImplementedError``.
+layer by layer.  The xLSTM kinds (mLSTM, sLSTM) wait for a later slice and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, LayerKind
 from repro_torch.models import attention, ssm
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
+from repro_torch.models.moe import apply_moe, init_moe_params
 
 ATTN_KINDS = ("global_attn", "local_attn")
 
@@ -26,9 +28,6 @@ def _check(cfg: ArchConfig, kind: LayerKind) -> None:
                 f"layer kind {kind!r} is not ported yet (ROADMAP queue 1: "
                 f"remaining families)")
         raise ValueError(kind)
-    if cfg.is_moe:
-        raise NotImplementedError("the MoE MLP is not ported yet (ROADMAP "
-                                  "queue 1: remaining families)")
 
 
 def init_block(gen, cfg: ArchConfig, kind: LayerKind, dtype=torch.float32,
@@ -42,8 +41,11 @@ def init_block(gen, cfg: ArchConfig, kind: LayerKind, dtype=torch.float32,
         p["rglru"] = ssm.init_rglru_params(gen, cfg, dtype, device)
     if cfg.d_ff > 0:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype,
-                            device)
+        if cfg.is_moe:
+            p["moe"] = init_moe_params(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                                dtype, device)
     return p
 
 
@@ -64,5 +66,9 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: LayerKind,
     x = x + out
     if cfg.d_ff > 0:
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
-        x = x + apply_mlp(params["mlp"], h2, cfg.activation)
+        if cfg.is_moe:
+            out2, aux = apply_moe(params["moe"], h2, cfg)
+        else:
+            out2 = apply_mlp(params["mlp"], h2, cfg.activation)
+        x = x + out2
     return x, new_cache, aux

@@ -34,9 +34,11 @@ head path) when one stage holds both, and as ``Σe_m + Σh_m`` when the head
 lies on a later stage.  So S = 1 and S > 1 agree to fp32 roundoff at
 M > 1, and bitwise at M = 1 and between any two S > 1.
 
-MoE auxiliary losses are summed per stage then combined in stage order.
-The block VJP pulls back the block's output alone: a dense block's aux is
-a constant zero, and the MoE block is not ported yet.
+MoE auxiliary losses are summed per stage then combined in stage order,
+and every block VJP pulls back the pair (output, aux) with the cotangent
+``(ct_h, aux_weight / M)``.  With aux ≠ 0 and S > 1 the summation grouping
+differs from S = 1, so MoE configs agree across S to fp32 roundoff rather
+than bitwise (dense blocks emit a constant-zero aux and stay bitwise).
 
 ``stage_devices=`` places each stage's parameters, micro-batches and
 boundary buffers on a device of its own (``.to`` before each stage call);
@@ -315,6 +317,9 @@ class PipelineTrainer:
 
         ct_h = None if has_head else unflatten_tree(ct_in,
                                                     self._bspecs[s])
+        aux_ct = (torch.full((), self.aux_weight / self.num_microbatches,
+                             dtype=torch.float32, device=self._device_of(s))
+                  if self.cfg.is_moe else None)
         embed_from_head = None
         for l in reversed(layers):
             if l == Ls - 1:
@@ -330,8 +335,8 @@ class PipelineTrainer:
             else:
                 g, ct_h = _vjp(
                     lambda p, hh, _k=kinds[l - 1]: self._apply_block(p, hh,
-                                                                     _k)[0],
-                    (trees[l], acts.pop(l)), ct_h)
+                                                                     _k),
+                    (trees[l], acts.pop(l)), (ct_h, aux_ct))
             _accumulate(acc, l, flatten_tree(g, self.specs[l]))
             del g
         ct_out = None if has_embed else flatten_tree(ct_h,

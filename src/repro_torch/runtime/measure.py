@@ -69,7 +69,9 @@ def measure_layer_times(zero, hook, state, batch, *, iters: int) -> None:
     the reference's ``jax.vjp`` times it and as the step's backward runs
     it — on the whole ``batch``, on the trainer's device.  Layers of one
     kind share their inputs (the embedding's output and a ones cotangent),
-    as in the reference.
+    as in the reference; a block's VJP pulls back (output, aux) with the
+    cotangent (ones, ``aux_weight``), so an MoE block's cost includes the
+    router's backward.
     """
     tr = zero
     Ls, kinds = tr.num_layers, tr._kinds
@@ -82,6 +84,8 @@ def measure_layer_times(zero, hook, state, batch, *, iters: int) -> None:
     with torch.no_grad():
         h0 = tr._apply_embed(trees[0], batch)
     ct_h = torch.ones_like(h0)
+    aux_ct = (torch.full((), tr.aux_weight, dtype=torch.float32,
+                         device=device) if tr.cfg.is_moe else None)
 
     def fwd(fn):
         def run():
@@ -100,8 +104,8 @@ def measure_layer_times(zero, hook, state, batch, *, iters: int) -> None:
             lambda l=l, kind=kind: tr._apply_block(trees[l], h0, kind)),
             calls, device)
         _sample(hook, "bc", l, lambda l=l, kind=kind: _vjp(
-            lambda p, hh: tr._apply_block(p, hh, kind)[0],
-            (trees[l], h0), ct_h), calls, device)
+            lambda p, hh: tr._apply_block(p, hh, kind),
+            (trees[l], h0), (ct_h, aux_ct)), calls, device)
     _sample(hook, "fc", Ls - 1, fwd(
         lambda: tr._apply_final(trees[Ls - 1], trees[0], h0, batch)),
         calls, device)

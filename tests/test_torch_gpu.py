@@ -11,6 +11,7 @@ its fused backward bitwise, flash attention at the reference's tolerances
 (atol 2e-6 in f32, 2e-2 in bf16).
 """
 
+import importlib.util
 import os
 
 import numpy as np
@@ -730,3 +731,104 @@ def test_verify_runtime_on_the_card_and_recording_never_syncs(cuda):
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the MoE MLP on the card
+# ---------------------------------------------------------------------------
+
+# chip_smoke.py holds the dropping config, the gradient limit and the aux
+# witness that the card tests share with it
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+SMOKE = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(SMOKE)
+
+
+def _moe_config(**changes):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                               **dict(SMOKE.MOE_DROPPING, **changes))
+
+
+def _close_to_scale(got, want):
+    assert SMOKE.leaf_gap(got.cpu(), want.cpu()) <= SMOKE.GRAD_SCALE_RTOL
+
+
+def test_moe_block_on_the_card_matches_the_cpu(cuda):
+    """One MoE block on the card against the CPU on the same weights and
+    input: the routing integers equal, the output, aux and every VJP leaf
+    to fp32 roundoff of its scale."""
+    from repro_torch import tree
+    from repro_torch.models import blocks, moe
+    cfg = _moe_config()
+    params = blocks.init_block(torch.Generator().manual_seed(0), cfg,
+                               "global_attn")
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for dev in ("cpu", cuda):
+        p = tree.tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        h = x.to(dev).requires_grad_()
+        y, _, aux = blocks.apply_block(p, h, cfg, "global_attn",
+                                       mode="train")
+        grads = torch.autograd.grad(
+            [y, aux], tree.leaves(p) + [h],
+            grad_outputs=[ct.to(dev), torch.full((), 0.01, device=dev)])
+        probs = torch.softmax(h.detach().reshape(-1, cfg.d_model)
+                              @ p["moe"]["router"].detach(), dim=-1)
+        r = moe.route(probs, cfg, moe.expert_capacity(128, cfg))
+        runs.append((y.detach(), aux.detach(), grads, r))
+    (y0, a0, g0, r0), (y1, a1, g1, r1) = runs
+    assert not r0.keep.all()
+    for a, b in zip(r0[1:], r1[1:]):
+        assert torch.equal(a, b.cpu())
+    _close_to_scale(y1, y0)
+    assert abs(a1.item() - a0.item()) <= 1e-6 * abs(a0.item())
+    for a, b in zip(g1, g0):
+        _close_to_scale(a, b)
+
+
+def test_moe_dispatch_is_bitwise_from_run_to_run(cuda):
+    """The scatter's forward and the gather's backward add through atomics
+    on the card; every extra contribution to a slot is an exact zero, so
+    two runs give the same bits.  One full-width MoE MLP (32 experts of
+    d_ff 512, top-8, 2048 tokens: capacity 640) and a dropping one."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    full = get_config("granite-moe-1b-a400m")
+    for cfg in (full, dataclasses.replace(full, capacity_factor=0.5)):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        params = moe.init_moe_params(gen, cfg, device=cuda)
+        x = torch.randn(2, 1024, cfg.d_model, generator=gen, device=cuda)
+        ct = torch.randn(x.shape, generator=gen, device=cuda)
+        runs = []
+        for _ in range(2):
+            p = tree.tree_map(lambda t: t.detach().requires_grad_(), params)
+            h = x.detach().requires_grad_()
+            out, aux = moe.apply_moe(p, h, cfg)
+            grads = torch.autograd.grad(
+                [out, aux], tree.leaves(p) + [h],
+                grad_outputs=[ct, torch.full((), 0.01, device=cuda)])
+            runs.append([out.detach(), aux.detach(), *grads])
+        for a, b in zip(*runs):
+            _assert_bitwise(a, b)
+
+
+def test_moe_aux_witness_at_two_blocks(cuda):
+    """``chip_smoke.moe_aux_witness`` on the reduced dropping MoE: the ZeRO
+    step's gradients on the card (recorded by the optimizer) equal
+    ``torch.autograd`` of ``train_loss``, each leaf within GRAD_SCALE_RTOL
+    of its largest magnitude; at ``aux_weight = 0`` the router's gradient
+    moves by more than twice that."""
+    try:
+        out = SMOKE.moe_aux_witness(_moe_config(), cuda, seq=64, batch=2)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    assert out["worst"] <= SMOKE.GRAD_SCALE_RTOL
+    assert out["moved"] > 2 * SMOKE.GRAD_SCALE_RTOL

@@ -51,6 +51,12 @@ MODEL_CASES = {
     "gqa-nrep2": ("granite-3-2b", {"num_kv_heads": 2}, 24),
     # (rglru, rglru, local_attn): the reduced window of 64 bites at seq 80
     "recurrentgemma-window": ("recurrentgemma-2b", {"num_layers": 3}, 80),
+    # MoE: 8 experts, top-2 at capacity factor 0.5 drop tokens; grok-1's
+    # gated GELU with attention and final softcaps
+    "granite-moe-dropping": ("granite-moe-1b-a400m",
+                             {"num_experts": 8, "top_k": 2,
+                              "capacity_factor": 0.5}, 16),
+    "grok-1-moe": ("grok-1-314b", {}, 16),
 }
 
 
@@ -134,7 +140,7 @@ class TestLayers:
                                 local=False, mode="decode")
 
     def test_unported_families_raise(self):
-        for name in ("granite-moe-1b-a400m", "xlstm-350m", "hubert-xlarge"):
+        for name in ("xlstm-350m", "hubert-xlarge"):
             with pytest.raises(NotImplementedError):
                 model.param_shapes(get_config(name).reduced())
 
@@ -176,7 +182,8 @@ class TestModel:
         assert all(torch.equal(x, y) for x, y in zip(ga, gb))
 
     @pytest.mark.parametrize("name", ["granite-3-2b", "gemma2-2b",
-                                      "gemma-7b", "recurrentgemma-2b"])
+                                      "gemma-7b", "recurrentgemma-2b",
+                                      "granite-moe-1b-a400m", "grok-1-314b"])
     @pytest.mark.parametrize("reduced", [True, False])
     def test_param_layout_bytes_and_profiles_exact(self, name, reduced):
         cfg, jcfg = get_config(name), jax_get_config(name)
