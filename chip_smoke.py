@@ -100,7 +100,27 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    against 1f1b bitwise at 4 blocks); then a reduced MoE that drops
    tokens under ``zero.json`` and ``pipeline.json`` on the card against
    the port on the CPU;
-11. ``verify``: the verification layer (``repro_torch.analysis``) on the
+11. ``families``: the last model families at their published widths.
+   xlstm-350m (24 layers: 21 mLSTM, 3 sLSTM; d_model 1024, 4 heads, the
+   mLSTM's head dim 512, vocab 50304, tied head): the mLSTM's parallel
+   form against its chunkwise form on the card at (2, 4, 256, 512);
+   bucket_pack / bucket_unpack bitwise at its plan's buckets; 3 ``zero``
+   steps under the DynaComm plan (asserted against the port's own
+   ``core`` and the reference's plan), the copies' launches against the
+   plan and no flash launch, seconds a step, peak against the reckoning,
+   the other three strategies (losses and parameters bitwise);
+   ``pipeline`` (S = 2, M = 2, 1f1b, 3 steps: partition, ledger, no
+   kernel of csrc/, no collective, peak; the first two losses against S =
+   1, M = 2; S = 1 against S = 2 at M = 1 bitwise at 8 layers); the
+   8-layer witness (one sLSTM block, T = 1024) with SGD, card against
+   CPU; then flash at hubert-xlarge's (2, 16, 1024,
+   80), non-causal (the HD = 128 template), timed as the record
+   ``flash_attention_fwd@hubert``, and hubert-xlarge (48 layers, d_model
+   1280, d_ff 5120 GELU, untied head, stub frames from ``batch_for``)
+   under ``zero``: flash 288 and the copies against the plan, seconds a
+   step, peak, the four strategies bitwise (its stub labels are all 0:
+   the loss reaches 0.0 after a step, so the parameters are held too);
+12. ``verify``: the verification layer (``repro_torch.analysis``) on the
    card, one NCCL rank: ``verify_runtime`` on full-width granite-3-2b under
    ``zero`` (its recorded step's 5 all-gathers and 2 reduce-scatters
    against the FlatSpec byte math, its launches against the plan), ``ps``
@@ -111,7 +131,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    no finding.  Then one mutation: zero's recorded step against its plan
    with one pull bucket split must be flagged (``SCHED-AG-COUNT``,
    ``SCHED-AG-BYTES``);
-12. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
+13. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
    ``ps.json`` / ``dynamic.json`` / ``dynamic_ps.json`` /
    ``ps_async.json`` / ``ps_async_int8.json`` / ``dynamic_ps_async.json`` /
    ``fleet_async.json`` / ``pipeline.json`` smoke configs through the
@@ -213,6 +233,32 @@ MOE_WITNESS_LAYERS = 4    # the gpipe / 1f1b witness's one cut: depth
 # capacity factor 0.5, so tokens drop (reduced() alone drops none)
 MOE_DROPPING = dict(num_experts=8, top_k=2, capacity_factor=0.5)
 GRAD_SCALE_RTOL = 4e-6    # a gradient leaf against its largest magnitude
+XLSTM = dict(MAIN, arch="xlstm-350m")
+HUBERT = dict(MAIN, arch="hubert-xlarge")
+# the DynaComm plans at full width (pull, push bucket sizes), computed
+# host-only with the reference's core
+FAMILY_PLANS = {"xlstm-350m": ((2, 3, 9, 1, 1, 10), (24, 2)),
+                "hubert-xlarge": ((2, 4, 44), (48, 2))}
+FAMILY_STRATEGIES = ("sequential", "lbl", "ibatch")  # beside dynacomm
+XLSTM_PIPELINE_SEGMENTS = ((1, 14), (15, 26))   # S = 2 at 1e10 FLOP/s
+# the ZeRO step's ~6 copies of the parameters (MOE_COPIES); beyond them the
+# head's logits (xlstm: 0.4 GB at vocab 50304), one block's recompute under
+# autograd (the sLSTM loop's 1024 steps of saved (2, 1024) tensors, the
+# mLSTM's chunk carries of 8 MiB) and each block's saved input, reckoned
+# before the run
+FAMILY_COPIES = 6
+FAMILY_ACTIVATION_GIB = 2.0
+MLSTM_FORMS_SHAPE = (2, 4, 256, 512)   # the full-width block's (B, H, T, hd)
+MLSTM_FORMS_ATOL = 5e-4   # tests/test_models.py::test_mlstm_chunkwise_...
+XLSTM_WITNESS_LAYERS = 8  # the witnesses' one cut: depth (one sLSTM block)
+WITNESS_LR = 1e-2         # SGD, as tests/test_torch_xlstm.py's trainers
+# card against CPU after an SGD step, each parameter leaf against its
+# largest magnitude.  The norm scales start at zero, so after the step they
+# are lr times the gradient and carry the gradient's own gap: the
+# 8-layer model bound of tests/test_torch_xlstm.py, where each float32
+# gradient leaf lies within 6.5e-4 of float64 (its float64 witness) and two
+# float32 runs within twice that
+XLSTM_WITNESS_RTOL = 2e-3
 SMOKE_CONFIGS = ("zero", "local", "ps", "dynamic", "dynamic_ps", "ps_async",
                  "ps_async_int8", "dynamic_ps_async", "fleet_async",
                  "pipeline")
@@ -254,6 +300,8 @@ REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention.py:111",
     "flash_attention_fwd@moe":
         "src/repro/kernels/flash_attention/flash_attention.py:111",
+    "flash_attention_fwd@hubert":
+        "src/repro/kernels/flash_attention/flash_attention.py:111",
     "compress_quantize": "src/repro/kernels/compress/compress.py:81",
     "compress_dequantize": "src/repro/kernels/compress/compress.py:137",
     "compress_sparsify": "src/repro/kernels/compress/compress.py:178",
@@ -267,6 +315,8 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "flash_attention_fwd@hd256":
                "src/repro_torch/csrc/flash_attention.cu",
            "flash_attention_fwd@moe":
+               "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_fwd@hubert":
                "src/repro_torch/csrc/flash_attention.cu",
            "compress_quantize": "src/repro_torch/csrc/compress.cu",
            "compress_dequantize": "src/repro_torch/csrc/compress.cu",
@@ -648,43 +698,46 @@ def check_flash(gen, dev, arch) -> dict:
     return {"flash_attention_fwd": rec, "flash_attention_fwd@hd256": rec256}
 
 
-def time_flash(gen, dev, arch, window: int, path: str) -> dict:
+def time_flash(gen, dev, arch, window: int, path: str,
+               causal: bool = True) -> dict:
     """Flash forward at a path's shape, f32: checked, then timed beside
-    its plain version, SDPA and its bound."""
+    its plain version, SDPA and its bound (the bound counts the
+    (query, key) pairs the mask keeps at the path's head dim)."""
     from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
                                                          flash_attention)
     import torch.nn.functional as F
     b, t, h, hkv, hd = (MAIN["batch"], MAIN["seq"], arch.num_heads,
                         arch.num_kv_heads, arch.head_dim)
     q, k, v = _qkv(gen, dev, b, h, hkv, t, hd, torch.float32, True)
-    err = (flash_attention(q, k, v, True, window, 0.0)
-           - _ref_fwd(q, k, v, True, window, 0.0)).abs().max().item()
+    err = (flash_attention(q, k, v, causal, window, 0.0)
+           - _ref_fwd(q, k, v, causal, window, 0.0)).abs().max().item()
     if not err <= F32_ATOL:
         raise AssertionError(f"flash at the {path} path's shape: max abs "
                              f"err {err:.3g} > {F32_ATOL}")
-    flops = 4 * b * h * hd * live_pairs(t, True, window)
+    flops = 4 * b * h * hd * live_pairs(t, causal, window)
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     iters = 20
     rec = dict(
         max_abs_err=err,
-        ms=cuda_ms(lambda: flash_attention(q, k, v, True, window, 0.0),
+        ms=cuda_ms(lambda: flash_attention(q, k, v, causal, window, 0.0),
                    iters),
-        plain_ms=cuda_ms(lambda: _ref_fwd(q, k, v, True, window, 0.0),
+        plain_ms=cuda_ms(lambda: _ref_fwd(q, k, v, causal, window, 0.0),
                          iters),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters),
+            q, k, v, is_causal=causal, enable_gqa=True), iters),
         bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     rec["tflops"] = flops / rec["ms"] / 1e9
     say("kernels", f"flash_attention_fwd at the {path} path's (B={b}, "
-                   f"H={h}/{hkv}, T={t}, hd={hd}, window {window}) f32: max "
-                   f"abs err {err:.3g}; {rec['tflops']:.2f} TFLOP/s = "
-                   f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound; "
-                   f"{rec['ms']:.4f} ms (plain "
-                   f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, "
-                   f"bound {rec['bound_ms']:.4f} by {rec['bound_by']})")
+               f"H={h}/{hkv}, T={t}, hd={hd}, "
+               f"{'causal' if causal else 'non-causal'}, window {window}) "
+               f"f32: max abs err {err:.3g}; {rec['tflops']:.2f} TFLOP/s = "
+               f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound; "
+               f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, SDPA "
+               f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f} by "
+               f"{rec['bound_by']})")
     return rec
 
 
@@ -2717,7 +2770,301 @@ def phase_moe(profile: bool, smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the verification layer on the card
+# phase 11: the last model families (xLSTM and the audio frontend)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_forms_on_the_card(dev) -> float:
+    """The mLSTM's parallel form against its chunkwise form (chunk 64: 4
+    chunks) at the full-width block's (B, H, T, hd) = (2, 4, 256, 512),
+    within the reference's own bound for the claim."""
+    from repro_torch.models import ssm
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, h, t, hd = MLSTM_FORMS_SHAPE
+    q, k, v = (torch.randn(b, h, t, hd, generator=gen, device=dev)
+               for _ in range(3))
+    ig = torch.randn(b, h, t, generator=gen, device=dev)
+    fg = torch.randn(b, h, t, generator=gen, device=dev) + 2.0
+    with torch.no_grad():
+        par = ssm._mlstm_parallel(q, k, v, ig, fg)
+        chunked, _ = ssm._mlstm_chunkwise(q, k, v, ig, fg, chunk=64)
+    err = (par - chunked).abs().max().item()
+    if not err <= MLSTM_FORMS_ATOL:
+        raise AssertionError(f"mLSTM parallel vs chunkwise on the card: max "
+                             f"abs err {err:.3g} > {MLSTM_FORMS_ATOL}")
+    say("families", f"mLSTM parallel form against the chunkwise form "
+                    f"(chunk 64) at {MLSTM_FORMS_SHAPE}: max abs err "
+                    f"{err:.3g} (atol {MLSTM_FORMS_ATOL}, the reference's "
+                    f"claim) on values up to {par.abs().max().item():.3g}")
+    return err
+
+
+def slstm_share(rt, steady: float) -> None:
+    """One more ZeRO step, untraced, with the host clock around each sLSTM
+    block's forward (outside autograd) and each sLSTM block's pull-back
+    (``dist/zero.py::_vjp``: the recompute under autograd and the
+    backward), the card synchronised at each edge: their seconds against
+    the step's.  The loop is host-paced (the trace's device time is a
+    small part of the step), so its wall time is what the step pays."""
+    from repro_torch.dist import zero as zero_mod
+    from repro_torch.models import blocks
+    init, apply = blocks.RECURRENT["slstm"]
+    vjp = zero_mod._vjp
+    spent = {"forward": [], "pull-back": []}
+
+    def clocked(kind, fn, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        spent[kind].append(time.perf_counter() - t0)
+        return out
+
+    def timed_apply(*a, **k):
+        if torch.is_grad_enabled():           # the recompute in the VJP
+            return apply(*a, **k)
+        return clocked("forward", apply, *a, **k)
+
+    def timed_vjp(fn, primals, cotangent):
+        if isinstance(primals[0], dict) and "slstm" in primals[0]:
+            return clocked("pull-back", vjp, fn, primals, cotangent)
+        return vjp(fn, primals, cotangent)
+    blocks.RECURRENT["slstm"] = (init, timed_apply)
+    zero_mod._vjp = timed_vjp
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.fit(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        blocks.RECURRENT["slstm"] = (init, apply)
+        zero_mod._vjp = vjp
+    total = sum(map(sum, spent.values()))
+    parts = ", ".join(f"{kind} {len(v)}x {sum(v):.3f} s"
+                      for kind, v in spent.items())
+    say("profile xlstm", f"sLSTM blocks ({parts}): {total:.3f} s of the "
+                         f"step's {wall:.3f} s = {100 * total / wall:.1f}% "
+                         f"(untraced steady step {steady * 1e3:.1f} ms)")
+
+
+def family_zero(name: str, profile: bool, smi: str) -> tuple:
+    """STEPS ZeRO steps of ``name`` at full width under the DynaComm plan
+    (asserted against the port's own ``core`` and the host-only plan),
+    launches against the plan, seconds a step and peak against the
+    reckoning; then the other three strategies, losses and parameters
+    bitwise.  Returns (launches, losses, steady seconds)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.runtime import (RuntimeConfig, ScheduleConfig,
+                                     build_runtime)
+    config = RuntimeConfig(**dict(MAIN, arch=name),
+                           schedule=ScheduleConfig(strategy="dynacomm"))
+    _, want, specs = main_plan_specs(name)
+    if sizes(want) != FAMILY_PLANS[name]:
+        raise AssertionError(f"{name}: the port's core plans {sizes(want)}, "
+                             f"the reference's {FAMILY_PLANS[name]}")
+    check_replan_buckets(want, specs)
+    drop_group()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = build_runtime(config)          # batches: data.pipeline.batch_for
+    torch.cuda.synchronize()
+    arch, plan = rt.arch, rt.plan
+    if sizes(plan) != sizes(want):
+        raise AssertionError(f"{name}: plan {sizes(plan)} != the port's "
+                             f"core {sizes(want)}")
+    kinds = arch.layer_kinds()
+    say("families", f"{arch.name}: {arch.num_layers} layers "
+                    f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }, "
+                    f"d_model {arch.d_model}, heads {arch.num_heads}, "
+                    f"frontend {arch.frontend}, causal {arch.causal}, tied "
+                    f"head {arch.tie_embeddings}, vocab {arch.vocab_size}, "
+                    f"{sum(s.total for s in specs) / 1e9:.3f} B parameters; "
+                    f"batch {config.batch} x seq {config.seq}; built in "
+                    f"{time.perf_counter() - t0:.1f} s")
+    say("families", f"{name} plan (dynacomm): {sizes(plan)} == the port's "
+                    f"core == the reference's")
+    reset_launch_counts()
+    losses, secs = timed_steps(rt, STEPS)
+    counts = launch_counts()
+    expect = expected_launches(plan, arch, ())
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} != expected "
+                             f"{expect}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    copy = sum(s.total * 4 for s in specs) / 2**30
+    reckoned = FAMILY_COPIES * copy + FAMILY_ACTIVATION_GIB
+    if not peak <= reckoned:
+        raise AssertionError(f"{name}: peak {peak:.2f} GiB > the reckoning "
+                             f"{reckoned:.2f}")
+    steady = sum(secs[1:]) / len(secs[1:])
+    tokens = config.batch * config.seq
+    say("families", f"{name} zero losses {losses}")
+    say("families", f"{name} zero step seconds "
+                    f"{[round(x, 4) for x in secs]}; steady "
+                    f"{steady * 1e3:.1f} ms/step (steps 2-{STEPS}), "
+                    f"{tokens / steady:.1f} tokens/s; peak {peak:.2f} GiB "
+                    f"against the reckoning {reckoned:.2f} ({FAMILY_COPIES} "
+                    f"x {copy:.3f} GiB + {FAMILY_ACTIVATION_GIB}); {smi}")
+    say("families", f"{name} zero launches over {STEPS} steps {counts} == "
+                    f"the plan's")
+    # the parameters after the steps, beside the losses: hubert's stub
+    # labels are all 0, so its loss reaches 0.0 and says little after step 1
+    flats = [f.to("cpu", copy=True) for f in rt._state["flat_params"]]
+    if profile:
+        profile_step(rt, steady, f"profile {name}")
+        if "slstm" in kinds:
+            slstm_share(rt, steady)
+    del rt
+    free_cuda()
+    for strategy in FAMILY_STRATEGIES:
+        rt = build_runtime(dataclasses.replace(
+            config, schedule=ScheduleConfig(strategy=strategy)))
+        got, other = rt.fit(STEPS), sizes(rt.plan)
+        same = all(torch.equal(bits(a.cpu()), bits(b)) for a, b in
+                   zip(rt._state["flat_params"], flats))
+        del rt
+        free_cuda()
+        if got != losses or not same:
+            raise AssertionError(f"{name}: {strategy} losses {got} (dynacomm "
+                                 f"{losses}), parameters bitwise {same}")
+        say("families", f"{name} zero/{strategy}: plan {other}, losses and "
+                        f"parameters bitwise dynacomm's")
+    drop_group()
+    return counts, losses, steady
+
+
+def xlstm_pipeline(profile: bool, smi: str) -> None:
+    """``pipeline`` at xlstm-350m's full width under ``pipeline.json``'s
+    block (``run_pipeline_path``'s checks: the partition, no kernel of
+    csrc/ and no collective, the ledger, peak); losses against S = 1, M =
+    2 over the steps whose parameters differ by at most one update from
+    roundoff-different gradients (the tied embedding's grouping: the first
+    bitwise, the second to LOSS_RTOL; the third printed: the xLSTM's
+    trajectories part there, ``tests/test_torch_xlstm.py``'s float64
+    witness); then S = 1 against S = 2 at M = 1, bitwise, at
+    XLSTM_WITNESS_LAYERS layers of full width."""
+    from repro_torch.runtime import build_runtime
+    config = pipeline_config(XLSTM["arch"])
+    run = run_pipeline_path(config, XLSTM_PIPELINE_SEGMENTS, "families")
+    rt, losses = run["rt"], run["losses"]
+    say("families", f"xlstm pipeline losses {losses}; {smi}")
+    if profile:
+        profile_step(rt, run["steady"], "profile xlstm pipeline")
+    del rt, run
+    free_cuda()
+
+    def stages(S, M, model=None):
+        rt = build_runtime(dataclasses.replace(
+            config, pipeline=dataclasses.replace(
+                config.pipeline, stages=S, microbatches=M)), model)
+        out = rt.fit(STEPS)
+        del rt
+        free_cuda()
+        return out
+    ones = stages(1, 2)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, ones)]
+    if ones[0] != losses[0] or not gaps[1] <= LOSS_RTOL:
+        raise AssertionError(f"xlstm pipeline: S = 2 {losses} vs S = 1 "
+                             f"{ones}: rel gaps {gaps}")
+    say("families", f"xlstm pipeline S = 1, M = 2: {ones}; step 1 bitwise, "
+                    f"step 2 rel gap {gaps[1]:.3g} (rtol {LOSS_RTOL}), step "
+                    f"3 {gaps[2]:.3g} (not asserted: the trajectories part)")
+    small = dataclasses.replace(arch_of(config),
+                                num_layers=XLSTM_WITNESS_LAYERS)
+    one, two = stages(1, 1, small), stages(2, 1, small)
+    if one != two:
+        raise AssertionError(f"xlstm pipeline witness: S = 1 {one} vs S = "
+                             f"2 {two} at M = 1")
+    say("families", f"xlstm pipeline witness at {XLSTM_WITNESS_LAYERS} "
+                    f"layers of full width, M = 1: S = 1 and S = 2 losses "
+                    f"bitwise over {STEPS} steps ({one})")
+
+
+def xlstm_witness() -> None:
+    """XLSTM_WITNESS_LAYERS layers of xlstm-350m at full width (7 mLSTM, 1
+    sLSTM; T = 1024: the chunkwise form) under ``zero`` with SGD, on the
+    card against the port on the CPU from one initial state: the losses of
+    2 steps to LOSS_RTOL, and every parameter leaf after the first step
+    within XLSTM_WITNESS_RTOL of its largest magnitude.  SGD keeps the
+    update linear in the gradient (AdamW's first step is sign-like: a
+    roundoff-level gradient entry moves by ±lr either way); past the
+    second loss the xLSTM's trajectories part at roundoff (the float64
+    witness of ``tests/test_torch_xlstm.py``)."""
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import RuntimeConfig, build_runtime
+    model = dataclasses.replace(get_config(XLSTM["arch"]),
+                                num_layers=XLSTM_WITNESS_LAYERS)
+    config = RuntimeConfig(**dict(XLSTM, optimizer="sgd", lr=WITNESS_LR))
+    runs = {}
+    (ROOT / "build").mkdir(exist_ok=True)               # ignored by git
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "init.npz")
+        for device in ("cpu", None):
+            drop_group()
+            t0 = time.perf_counter()
+            rt = build_runtime(config, model, device=device)
+            if device == "cpu":
+                rt.save_state(path)
+            else:
+                rt.restore_state(path)
+            losses = rt.fit(1)
+            params = tree.tree_map(        # a copy: the state updates in place
+                lambda x: x.detach().to("cpu", copy=True),
+                rt.trainer.params_from_state(rt._state))
+            losses += rt.fit(1)
+            runs[device] = (losses, params, time.perf_counter() - t0)
+            del rt
+            drop_group()
+            free_cuda()
+    (cpu, cpu_p, cpu_s), (card, card_p, card_s) = runs["cpu"], runs[None]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    leaves = [(p, leaf_gap(a, b)) for (p, a), b in zip(
+        tree.leaves_with_paths(card_p), tree.leaves(cpu_p))]
+    worst = max(leaves, key=lambda x: x[1])
+    if not gap <= LOSS_RTOL or not worst[1] <= XLSTM_WITNESS_RTOL:
+        raise AssertionError(f"xlstm witness: card {card} vs CPU {cpu} (rel "
+                             f"gap {gap:.3g}), worst leaf {worst}")
+    say("families", f"xlstm witness at {XLSTM_WITNESS_LAYERS} layers of full "
+                    f"width, T = {XLSTM['seq']}, SGD (lr {WITNESS_LR}): 2 "
+                    f"losses card {card}, CPU {cpu}, rel gap {gap:.3g} (rtol "
+                    f"{LOSS_RTOL}); {len(leaves)} parameter leaves after "
+                    f"step 1, worst {worst[0]} {worst[1]:.3g} of its largest "
+                    f"magnitude (limit {XLSTM_WITNESS_RTOL}); CPU "
+                    f"{cpu_s:.1f} s, card {card_s:.1f} s")
+
+
+def phase_families(profile: bool, smi: str) -> tuple:
+    """xlstm-350m and hubert-xlarge at their published widths: the mLSTM's
+    two forms on the card, xLSTM ``zero`` (four strategies) and
+    ``pipeline``, the 8-layer witness against the CPU; flash at hubert's
+    shape (hd 80, non-causal: the HD = 128 template), hubert ``zero``
+    (four strategies).  Returns the flash record and each path's ZeRO
+    launches."""
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    mlstm_forms_on_the_card(dev)
+    xlstm_counts, _, _ = family_zero(XLSTM["arch"], profile, smi)
+    xlstm_pipeline(profile, smi)
+    xlstm_witness()
+    hubert = get_config(HUBERT["arch"])
+    with torch.no_grad():
+        rec = time_flash(torch.Generator(device=dev).manual_seed(4), dev,
+                         hubert, 0, "hubert", causal=hubert.causal)
+    free_cuda()
+    hubert_counts, _, _ = family_zero(HUBERT["arch"], profile, smi)
+    say("families", f"phase {time.perf_counter() - t0:.1f} s; {smi}")
+    return rec, {"xlstm": xlstm_counts, "hubert": hubert_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the verification layer on the card
 # ---------------------------------------------------------------------------
 
 
@@ -2934,8 +3281,8 @@ def drop_group() -> None:
         torch.distributed.destroy_process_group()
 
 
-def card_against_cpu(config, model=None) -> tuple:
-    """``STEPS`` losses of ``config`` (``model`` overriding its arch) on the
+def card_against_cpu(config, model=None, steps: int = STEPS) -> tuple:
+    """``steps`` losses of ``config`` (``model`` overriding its arch) on the
     card and on the CPU (plain versions, held to the reference there) from
     one initial state, drawn on the CPU and restored on the card; the
     batches are numpy's on both.  Returns (largest relative gap, card,
@@ -2948,11 +3295,11 @@ def card_against_cpu(config, model=None) -> tuple:
         drop_group()
         cpu_rt = build_runtime(config, model, device="cpu")  # a gloo group
         cpu_rt.save_state(path)
-        cpu = cpu_rt.fit(STEPS)
+        cpu = cpu_rt.fit(steps)
         drop_group()
         card_rt = build_runtime(config, model)            # an NCCL group
         card_rt.restore_state(path)
-        card = card_rt.fit(STEPS)
+        card = card_rt.fit(steps)
         drop_group()
     gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
     return gap, card, cpu
@@ -3148,9 +3495,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="trace one extra step of the main path, of each "
-                         "ps path, of the hybrid path, of the pipeline and "
-                         "of the two MoE paths, and one extra push of "
-                         "ps-async with torch.profiler")
+                         "ps path, of the hybrid path, of the pipeline, of "
+                         "the two MoE paths and of the xLSTM and hubert "
+                         "paths, and one extra push of ps-async with "
+                         "torch.profiler; time the sLSTM blocks' share of "
+                         "an xLSTM step")
     args = ap.parse_args(argv)
 
     start = time.perf_counter()
@@ -3176,6 +3525,8 @@ def main(argv=None) -> None:
     timed("pipeline", phase_pipeline, args.profile, smi,
           main_run["losses"])
     moe_flash_rec, moe_counts = timed("moe", phase_moe, args.profile, smi)
+    hubert_flash_rec, family_counts = timed("families", phase_families,
+                                            args.profile, smi)
     timed("verify", phase_verify, smi)
     timed("configs", phase_configs)
     say("time", f"phase wall seconds {walls}; "
@@ -3199,6 +3550,14 @@ def main(argv=None) -> None:
     counts["flash_attention_fwd@moe"] = moe_counts["flash_attention_fwd"]
     for name in ("bucket_pack", "bucket_unpack"):
         records[name]["moe_launches"] = moe_counts[name]
+    # the families' ZeRO steps: hubert's flash (hd 80, non-causal) a record
+    # of its own; the bucket copies' launches on both paths
+    records["flash_attention_fwd@hubert"] = hubert_flash_rec
+    counts["flash_attention_fwd@hubert"] = \
+        family_counts["hubert"]["flash_attention_fwd"]
+    for path, path_counts in family_counts.items():
+        for name in ("bucket_pack", "bucket_unpack"):
+            records[name][f"{path}_launches"] = path_counts[name]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

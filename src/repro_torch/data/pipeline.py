@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape
+from repro_torch.models import frontend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,20 +72,25 @@ class SyntheticCIFAR:
             step += 1
 
 
-def _frontend_pending(cfg: ArchConfig):
-    return NotImplementedError(
-        f"{cfg.name}: batches for the {cfg.frontend} frontend are not "
-        f"ported yet (ROADMAP queue 1 item 13, the frontends)")
-
-
 def batch_for(cfg: ArchConfig, shape: InputShape, *, step: int = 0,
               seed: int = 0) -> Dict[str, torch.Tensor]:
-    """A concrete batch for ``cfg`` at ``shape`` (text architectures; the
-    audio and vision frontends raise)."""
-    if cfg.frontend != "none":
-        raise _frontend_pending(cfg)
-    return SyntheticText(cfg.vocab_size, shape.seq_len, shape.global_batch,
-                         seed).batch(step)
+    """A concrete batch for ``cfg`` at ``shape``: text, stub audio frames
+    with zero labels, or stub vision embeddings (at most ``t - 1`` of them)
+    before ``t - nv`` text tokens.  The stubs come from
+    ``models/frontend.py``, equal to the reference's in shape and scale,
+    not in value."""
+    b, t = shape.global_batch, shape.seq_len
+    if cfg.frontend == "audio":
+        return {"frames": frontend.audio_frames(cfg, b, t, seed=seed),
+                "labels": torch.zeros((b, t), dtype=torch.int64)}
+    if cfg.frontend == "vision":
+        nv = min(cfg.num_vision_tokens, t - 1)
+        text = SyntheticText(cfg.vocab_size, t - nv, b, seed).batch(step)
+        return {"tokens": text["tokens"],
+                "vision_embeds": frontend.vision_embeddings(
+                    cfg, b, seed=seed)[:, :nv],
+                "labels": text["labels"]}
+    return SyntheticText(cfg.vocab_size, t, b, seed).batch(step)
 
 
 def make_pipeline(cfg: ArchConfig, shape: InputShape, seed: int = 0):

@@ -260,10 +260,13 @@ class ZeroTrainer:
         return y, aux
 
     def _apply_final(self, final_tree, embed_tree, x, batch):
-        """Final norm + (possibly embedding-tied) head + masked CE."""
+        """Final norm + (possibly embedding-tied) head + masked CE (the
+        labels padded with ``-1`` over prepended vision tokens)."""
         logits = model_lib._head(
             self.cfg, {"embed": embed_tree, "final": final_tree}, x)
-        return model_lib.cross_entropy(logits, batch["labels"])
+        return model_lib.cross_entropy(
+            logits, model_lib.padded_labels(self.cfg, logits,
+                                            batch["labels"]))
 
     # ------------------------------------------------------------------
     # the train step

@@ -1,5 +1,6 @@
-"""Model zoo: text models with attention and RG-LRU blocks (other families
-later), and the paper's CNN workload tables with its trainable small CNN."""
+"""Model zoo: every family of ``configs/`` (attention, RG-LRU, xLSTM and
+MoE blocks; text, stub audio and stub vision frontends), and the paper's
+CNN workload tables with its trainable small CNN."""
 
 from repro_torch.models.model import (cross_entropy, forward, init_params,
                                       num_sched_layers, param_count,

@@ -1,10 +1,11 @@
-"""Per-layer block: init / apply for the attention kinds and the RG-LRU,
-with a dense MLP or, when the config has experts, the MoE MLP
-(``models/moe.py``), whose router load-balance loss is the block's aux.
+"""Per-layer block: init / apply for every layer kind (the attention kinds,
+mLSTM, sLSTM and the RG-LRU), with a dense MLP or, when the config has
+experts, the MoE MLP (``models/moe.py``), whose router load-balance loss is
+the block's aux.  xLSTM configs have ``d_ff = 0``: their blocks carry their
+own up / down projections and no MLP.
 
 Every block is addressable individually — DynaComm schedules transmissions
-layer by layer.  The xLSTM kinds (mLSTM, sLSTM) wait for a later slice and
-raise ``NotImplementedError``.
+layer by layer.
 """
 
 from __future__ import annotations
@@ -19,14 +20,14 @@ from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
 from repro_torch.models.moe import apply_moe, init_moe_params
 
 ATTN_KINDS = ("global_attn", "local_attn")
+# recurrent kind -> (its parameter key's init, its apply)
+RECURRENT = {"mlstm": (ssm.init_mlstm_params, ssm.apply_mlstm),
+             "slstm": (ssm.init_slstm_params, ssm.apply_slstm),
+             "rglru": (ssm.init_rglru_params, ssm.apply_rglru)}
 
 
 def _check(cfg: ArchConfig, kind: LayerKind) -> None:
-    if kind not in ATTN_KINDS + ("rglru",):
-        if kind in ("mlstm", "slstm"):
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported yet (ROADMAP queue 1: "
-                f"remaining families)")
+    if kind not in ATTN_KINDS and kind not in RECURRENT:
         raise ValueError(kind)
 
 
@@ -38,7 +39,7 @@ def init_block(gen, cfg: ArchConfig, kind: LayerKind, dtype=torch.float32,
     if kind in ATTN_KINDS:
         p["attn"] = attention.init_attn_params(gen, cfg, dtype, device)
     else:
-        p["rglru"] = ssm.init_rglru_params(gen, cfg, dtype, device)
+        p[kind] = RECURRENT[kind][0](gen, cfg, dtype, device)
     if cfg.d_ff > 0:
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
         if cfg.is_moe:
@@ -61,8 +62,8 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: LayerKind,
             params["attn"], h, cfg, local=(kind == "local_attn"), mode=mode,
             cache=cache)
     else:
-        out, new_cache = ssm.apply_rglru(params["rglru"], h, cfg, mode=mode,
-                                         state=cache)
+        out, new_cache = RECURRENT[kind][1](params[kind], h, cfg, mode=mode,
+                                            state=cache)
     x = x + out
     if cfg.d_ff > 0:
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)

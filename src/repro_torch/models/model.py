@@ -1,16 +1,21 @@
-"""Model builder: init / forward / loss over an ArchConfig (text models).
+"""Model builder: init / forward / loss over an ArchConfig.
 
 Parameter layout (the "scheduling view" DynaComm consumes), the same nested
 dict as the reference's::
 
     params = {
-      "embed":  {...}          # sched layer 0   (token table)
+      "embed":  {...}          # sched layer 0   (token table / input proj)
       "layers": [block_0, ...] # sched layers 1..L
       "final":  {...}          # sched layer L+1 (final norm + untied head)
     }
 
 ``num_sched_layers = cfg.num_layers + 2``; per-sched-layer byte counts and
 FLOPs come from ``profiles.py`` and feed the DP scheduler directly.
+
+The audio frontend (hubert) takes pre-embedded frames through a learnt
+``in_proj``; the vision frontend (llava) prepends the batch's
+``vision_embeds`` to the token embeddings, and the loss pads the labels
+with ``-1`` over them.  Both frontends are stubs (``models/frontend.py``).
 """
 
 from __future__ import annotations
@@ -23,17 +28,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks
+from repro_torch.models.attention import DECODE_PENDING
 from repro_torch.models.layers import (dense, embed, init_dense,
                                        init_embedding, logits_from_embedding,
                                        rms_norm, softcap)
 
 Params = Dict[str, Any]
-
-
-def _check_text(cfg: ArchConfig) -> None:
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"is not ported yet (ROADMAP queue 1)")
 
 
 def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
@@ -42,10 +42,14 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
 
     On the ``meta`` device this only builds shapes (no ``gen`` needed).
     """
-    _check_text(cfg)
     p: Params = {"embed": {}, "layers": [], "final": {}}
-    p["embed"]["table"] = init_embedding(gen, cfg.vocab_size, cfg.d_model,
-                                         dtype, device)
+    if cfg.frontend != "audio":
+        p["embed"]["table"] = init_embedding(gen, cfg.vocab_size,
+                                             cfg.d_model, dtype, device)
+    else:
+        # audio: frames arrive pre-embedded (stub frontend); learn a proj
+        p["embed"]["in_proj"] = init_dense(gen, cfg.d_model, cfg.d_model,
+                                           dtype, device)
     for kind in cfg.layer_kinds():
         p["layers"].append(blocks.init_block(gen, cfg, kind, dtype, device))
     p["final"]["norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
@@ -58,9 +62,13 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
 
 def _embed_inputs(cfg: ArchConfig, params: Params,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Produce the (B, T, d) input sequence (text frontends only)."""
-    _check_text(cfg)
-    return embed(batch["tokens"], params["embed"]["table"])
+    """Produce the (B, T, d) input sequence from the modality's batch."""
+    if cfg.frontend == "audio":
+        return dense(batch["frames"], params["embed"]["in_proj"])
+    x = embed(batch["tokens"], params["embed"]["table"])
+    if cfg.frontend == "vision" and "vision_embeds" in batch:
+        x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -76,6 +84,10 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             last_only: bool = False
             ) -> Tuple[torch.Tensor, Optional[List[Any]], torch.Tensor]:
     """Returns (logits, new_caches_or_None, aux_loss); train / prefill."""
+    if mode == "decode":
+        if cfg.frontend == "audio":
+            raise ValueError("encoder-only model has no decode mode")
+        raise NotImplementedError(DECODE_PENDING)
     x = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
@@ -117,7 +129,20 @@ def train_loss(cfg: ArchConfig, params: Params,
                batch: Dict[str, torch.Tensor], *, aux_weight: float = 0.01,
                remat: bool = False) -> torch.Tensor:
     logits, _, aux = forward(cfg, params, batch, mode="train", remat=remat)
-    return cross_entropy(logits, batch["labels"]) + aux_weight * aux
+    return cross_entropy(logits, padded_labels(cfg, logits, batch["labels"])
+                         ) + aux_weight * aux
+
+
+def padded_labels(cfg: ArchConfig, logits: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """``labels`` with ``-1`` (ignored) over the vision tokens that the
+    vision frontend prepends: as many as ``logits`` has positions more."""
+    if cfg.frontend != "vision":
+        return labels
+    nv = logits.shape[1] - labels.shape[1]
+    pad = torch.full(labels.shape[:1] + (nv,), -1, dtype=labels.dtype,
+                     device=labels.device)
+    return torch.cat([pad, labels], dim=1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,35 @@
-"""Recurrent blocks: the RG-LRU of RecurrentGemma / Griffin (train, prefill).
+"""Recurrent blocks: xLSTM (mLSTM + sLSTM) and the RG-LRU of RecurrentGemma /
+Griffin (train, prefill).
 
-The RG-LRU (real-gated linear recurrent unit, arXiv:2402.19427 §2.4) inside
-the Griffin recurrent block: input projection → 4-tap temporal conv →
-gated linear recurrence → gated output projection.  It follows the
-reference (``repro/models/ssm.py``), not the published Griffin: dense W×W
-gates and the same parameter keys, shapes and arithmetic order.
+All three follow the reference (``repro/models/ssm.py``), not the published
+models: the same parameter keys, shapes and arithmetic order.
 
-The recurrence always goes through ``kernels/rglru_scan``: the CUDA kernel
-on a CUDA tensor, its plain loop on a CPU tensor.  The reference's
-``use_kernel`` switch (off by default there, which left its model on
-``jax.lax.associative_scan``) is gone: dispatch goes by the tensor's
-device, as for attention.  Decode (the O(1)-state step) waits for the
-serving slice; mLSTM and sLSTM wait for a later one.
+* mLSTM — matrix-memory LSTM (arXiv:2405.04517 eq. 19-27).  Up to
+  ``MLSTM_CHUNK`` steps the stabilised quadratic parallel form runs; above
+  it the chunkwise form (intra-chunk parallel, inter-chunk carry of
+  (C, n, m)), which also gives the prefill state.
+* sLSTM — scalar-memory LSTM with exponential gating and state
+  normalisation, a loop over time.  The four input products ``x_t @ W_g``
+  do not depend on the carry and are taken for all T at once before the
+  loop; inside it each gate sums ``x@W + h@R`` in the reference's order.
+* RG-LRU — real-gated linear recurrent unit (arXiv:2402.19427 §2.4) inside
+  the Griffin recurrent block: input projection → 4-tap temporal conv →
+  gated linear recurrence → gated output projection, with dense W×W gates.
+  The recurrence always goes through ``kernels/rglru_scan``: the CUDA
+  kernel on a CUDA tensor, its plain loop on a CPU tensor (the
+  reference's ``use_kernel`` switch is gone: dispatch goes by the
+  tensor's device, as for attention).
+
+The decode steps ``_mlstm_step`` / ``_slstm_step`` are pure functions
+here; decode mode itself (the O(1)-state step behind ``mode="decode"``)
+waits for the serving slice.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,6 +37,276 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.attention import DECODE_PENDING
 from repro_torch.models.layers import dense, init_dense, normal
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (``F.softplus``
+    turns into the identity above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``, through ``_softplus`` so
+    that a cumulative sum of it starts from the reference's bits."""
+    return -_softplus(-x)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM
+# ---------------------------------------------------------------------------
+
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor     # (B, H, hd, hd) matrix memory
+    n: torch.Tensor     # (B, H, hd) normaliser
+    m: torch.Tensor     # (B, H) stabiliser
+
+
+def init_mlstm_params(gen, cfg: ArchConfig, dtype=torch.float32,
+                      device="cpu"):
+    d = cfg.d_model
+    di = int(cfg.mlstm_proj_factor * d)
+    return {
+        "up": init_dense(gen, d, di, dtype, device),
+        "up_gate": init_dense(gen, d, di, dtype, device),
+        "wq": init_dense(gen, di, di, dtype, device),
+        "wk": init_dense(gen, di, di, dtype, device),
+        "wv": init_dense(gen, di, di, dtype, device),
+        "wi": init_dense(gen, di, cfg.num_heads, dtype, device),
+        "wf": init_dense(gen, di, cfg.num_heads, dtype, device),
+        "down": init_dense(gen, di, d, dtype, device),
+    }
+
+
+def _causal(t: int, device) -> torch.Tensor:
+    return torch.ones((t, t), dtype=torch.bool, device=device).tril()
+
+
+def _mlstm_parallel(q, k, v, i_gate, f_gate):
+    """Stabilised parallel form.  q,k,v: (B,H,T,hd); gates: (B,H,T)."""
+    hd = q.shape[-1]
+    logf = _log_sigmoid(f_gate.float())                          # (B,H,T)
+    F_ = torch.cumsum(logf, dim=-1)                              # Σ_{s<=t}
+    # D̃[t,s] = F_t - F_s + ĩ_s  for s<=t
+    dtil = F_[..., :, None] - F_[..., None, :] + i_gate.float()[..., None, :]
+    dtil = torch.where(_causal(q.shape[2], q.device), dtil, -np.inf)
+    m = dtil.amax(dim=-1, keepdim=True)                          # (B,H,T,1)
+    dmat = torch.exp(dtil - m)
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) \
+        / float(np.float32(np.sqrt(hd)))
+    sd = s * dmat
+    norm = torch.maximum(sd.sum(dim=-1, keepdim=True).abs(), torch.exp(-m))
+    h = torch.einsum("bhts,bhsd->bhtd", sd / norm, v.float())
+    return h.to(q.dtype)
+
+
+# Sequences longer than this use the chunkwise form in train / prefill (the
+# full T×T decay matrix grows as T²): intra-chunk parallel (c×c tiles),
+# inter-chunk recurrent carry (C, n, m), mathematically the parallel form.
+MLSTM_CHUNK = 256
+
+
+def _mlstm_chunkwise(q, k, v, i_gate, f_gate, chunk: Optional[int] = None):
+    """q,k,v: (B,H,T,hd); gates: (B,H,T) → h: (B,H,T,hd), final state."""
+    if chunk is None:
+        chunk = MLSTM_CHUNK          # module attribute: patchable
+    b, h, t, hd = q.shape
+    while t % chunk:
+        chunk //= 2
+    scale = 1.0 / np.sqrt(hd)
+    causal = _causal(chunk, q.device)
+    C = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
+    m_run = torch.zeros((b, h), dtype=torch.float32, device=q.device)
+    outs = []
+    for lo in range(0, t, chunk):
+        part = slice(lo, lo + chunk)
+        qq32, kk32, vv32 = (x[:, :, part].float() for x in (q, k, v))
+        lf = _log_sigmoid(f_gate[..., part].float())          # (B,H,c)
+        a = torch.cumsum(lf, dim=-1)                          # local decay
+        A = a[..., -1]                                        # (B,H)
+        ii32 = i_gate[..., part].float()
+
+        # intra-chunk scores D̃[t,j] = a_t - a_j + ĩ_j (j<=t)
+        dtil = a[..., :, None] - a[..., None, :] + ii32[..., None, :]
+        dtil = torch.where(causal, dtil, -np.inf)
+        inter_log = a + m_run[..., None]                      # (B,H,c)
+        m_t = torch.maximum(dtil.amax(dim=-1), inter_log)     # (B,H,c)
+
+        d = torch.exp(dtil - m_t[..., None])
+        s = torch.einsum("bhtd,bhjd->bhtj", qq32, kk32) * scale
+        sd = s * d
+        num_intra = torch.einsum("bhtj,bhjd->bhtd", sd, vv32)
+        den_intra = sd.sum(dim=-1)
+
+        w_inter = torch.exp(inter_log - m_t)                  # (B,H,c)
+        num_inter = torch.einsum("bhde,bhte->bhtd", C, qq32) \
+            * w_inter[..., None]
+        den_inter = torch.einsum("bhd,bhtd->bht", n, qq32) * w_inter
+
+        denom = torch.maximum((den_intra + den_inter).abs(),
+                              torch.exp(-m_t))
+        outs.append(((num_intra + num_inter) / denom[..., None])
+                    .to(q.dtype))
+
+        # state update to the chunk's end
+        bj = A[..., None] - a + ii32                          # (B,H,c)
+        m_new = torch.maximum(m_run + A, bj.amax(dim=-1))
+        w_old = torch.exp(m_run + A - m_new)
+        wj = torch.exp(bj - m_new[..., None])
+        kfs = kk32 * scale
+        C = w_old[..., None, None] * C \
+            + torch.einsum("bhj,bhjd,bhje->bhde", wj, vv32, kfs)
+        n = w_old[..., None] * n + torch.einsum("bhj,bhjd->bhd", wj, kfs)
+        m_run = m_new
+    return torch.cat(outs, dim=2), MLSTMState(c=C, n=n, m=m_run)
+
+
+def _mlstm_step(q, k, v, i_gate, f_gate, state: MLSTMState):
+    """One decode step.  q,k,v: (B,H,hd); gates: (B,H)."""
+    hd = q.shape[-1]
+    logf = _log_sigmoid(f_gate.float())
+    m_new = torch.maximum(logf + state.m, i_gate.float())
+    f_p = torch.exp(logf + state.m - m_new)
+    i_p = torch.exp(i_gate.float() - m_new)
+    kf = k.float() / float(np.float32(np.sqrt(hd)))
+    c = f_p[..., None, None] * state.c \
+        + i_p[..., None, None] * torch.einsum("bhd,bhe->bhde", v.float(), kf)
+    n = f_p[..., None] * state.n + i_p[..., None] * kf
+    num = torch.einsum("bhde,bhe->bhd", c, q.float())
+    den = torch.maximum(
+        torch.einsum("bhd,bhd->bh", n, q.float()).abs()[..., None],
+        torch.exp(-m_new)[..., None])
+    return (num / den).to(q.dtype), MLSTMState(c=c, n=n, m=m_new)
+
+
+def init_mlstm_state(cfg: ArchConfig, batch: int,
+                     device="cpu") -> MLSTMState:
+    di = int(cfg.mlstm_proj_factor * cfg.d_model)
+    hd = di // cfg.num_heads
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return MLSTMState(c=zeros(batch, cfg.num_heads, hd, hd),
+                      n=zeros(batch, cfg.num_heads, hd),
+                      m=zeros(batch, cfg.num_heads))
+
+
+def apply_mlstm(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+                state: Optional[MLSTMState] = None
+                ) -> Tuple[torch.Tensor, Optional[MLSTMState]]:
+    """Returns (output (B, T, d_model), the prefill state or None)."""
+    if mode not in ("train", "prefill"):
+        raise NotImplementedError(DECODE_PENDING)
+    b, t, _ = x.shape
+    heads = cfg.num_heads
+    up = dense(x, params["up"])
+    gate = F.silu(dense(x, params["up_gate"]))
+    di = up.shape[-1]
+    hd = di // heads             # the mLSTM's own head dim, not cfg.head_dim
+
+    def split(w):
+        return dense(up, w).reshape(b, t, heads, hd).transpose(1, 2)
+    q, k, v = split(params["wq"]), split(params["wk"]), split(params["wv"])
+    ig = dense(up, params["wi"]).transpose(1, 2)         # (B, H, T)
+    fg = dense(up, params["wf"]).transpose(1, 2)
+
+    if t > MLSTM_CHUNK:
+        h, final_state = _mlstm_chunkwise(q, k, v, ig, fg)
+    else:
+        h = _mlstm_parallel(q, k, v, ig, fg)             # (B,H,T,hd)
+        final_state = None
+        if mode == "prefill":
+            _, final_state = _mlstm_chunkwise(q, k, v, ig, fg,
+                                              chunk=min(t, MLSTM_CHUNK))
+    new_state = final_state if mode == "prefill" else None
+    out = h.transpose(1, 2).reshape(b, t, di)
+    return dense(out * gate, params["down"]), new_state
+
+
+# ---------------------------------------------------------------------------
+# sLSTM
+# ---------------------------------------------------------------------------
+
+SLSTM_GATES = ("i", "f", "z", "o")
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor     # (B, D)
+    n: torch.Tensor     # (B, D)
+    h: torch.Tensor     # (B, D)
+    m: torch.Tensor     # (B, D)
+
+
+def init_slstm_params(gen, cfg: ArchConfig, dtype=torch.float32,
+                      device="cpu"):
+    d = cfg.d_model
+    p = {f"w{g}": init_dense(gen, d, d, dtype, device) for g in SLSTM_GATES}
+    for g in SLSTM_GATES:
+        p[f"r{g}"] = init_dense(gen, d, d, dtype, device) * 0.1
+    p["down"] = init_dense(gen, d, d, dtype, device)
+    return p
+
+
+def init_slstm_state(cfg: ArchConfig, batch: int,
+                     device="cpu") -> SLSTMState:
+    z = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+    return SLSTMState(c=z, n=z, h=z, m=z)
+
+
+def _slstm_cell(params, xw: Dict[str, torch.Tensor], s: SLSTMState,
+                one: torch.Tensor) -> SLSTMState:
+    """One step from the input products ``xw[g] = x_t @ W_g``; ``one`` is a
+    0-d 1.0.  ``torch.maximum(n, one)`` splits the gradient at a tie as
+    ``jnp.maximum`` does (n = 1.0 exactly at t = 0 when ĩ >= log f);
+    ``clamp(min=1)`` would pass all of it to n."""
+    def gate(name):
+        w = xw[name]
+        return (w + dense(s.h.to(w.dtype), params[f"r{name}"])).float()
+    itil, ftil = gate("i"), gate("f")
+    z = torch.tanh(gate("z"))
+    o = torch.sigmoid(gate("o"))
+    logf_m = _log_sigmoid(ftil) + s.m
+    m_new = torch.maximum(logf_m, itil)
+    i_p = torch.exp(itil - m_new)
+    f_p = torch.exp(logf_m - m_new)
+    c = f_p * s.c + i_p * z
+    n = f_p * s.n + i_p
+    h = o * c / torch.maximum(n, one)
+    return SLSTMState(c=c, n=n, h=h, m=m_new)
+
+
+def _slstm_step(params, x_t: torch.Tensor, s: SLSTMState) -> SLSTMState:
+    """One step from the input ``x_t`` (B, D), as the reference's."""
+    return _slstm_cell(params, {g: dense(x_t, params[f"w{g}"])
+                                for g in SLSTM_GATES}, s,
+                       torch.ones((), dtype=torch.float32,
+                                  device=x_t.device))
+
+
+def apply_slstm(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+                state: Optional[SLSTMState] = None
+                ) -> Tuple[torch.Tensor, Optional[SLSTMState]]:
+    """Returns (output (B, T, d_model), the prefill state or None)."""
+    if mode not in ("train", "prefill"):
+        raise NotImplementedError(DECODE_PENDING)
+    b, t, _ = x.shape
+    s = init_slstm_state(cfg, b, x.device)
+    # the input products for all T at once: one (B·T, d) × (d, d) a gate
+    xw = {g: dense(x, params[f"w{g}"]) for g in SLSTM_GATES}
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    hs = []
+    for i in range(t):
+        s = _slstm_cell(params, {g: w[:, i] for g, w in xw.items()}, s, one)
+        hs.append(s.h)
+    out = torch.stack(hs, dim=1).to(x.dtype)
+    new_state = s if mode == "prefill" else None
+    return dense(out, params["down"]), new_state
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (Griffin recurrent block)
+# ---------------------------------------------------------------------------
 
 _RGLRU_C = 8.0
 _CONV_WIDTH = 4
@@ -69,12 +351,6 @@ def init_rglru_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
         h=torch.zeros((batch, w), dtype=torch.float32, device=device),
         conv=torch.zeros((batch, _CONV_WIDTH - 1, w), dtype=dtype,
                          device=device))
-
-
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: ``logaddexp(x, 0)`` everywhere (``F.softplus``
-    turns into the identity above its threshold of 20)."""
-    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _rglru_gates(params, u: torch.Tensor):

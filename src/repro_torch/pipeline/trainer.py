@@ -145,7 +145,8 @@ class PipelineTrainer:
         """The numerator of ``cross_entropy`` — same ops, no division."""
         logits = model_lib._head(
             self.cfg, {"embed": embed_tree, "final": final_tree}, x)
-        labels = batch["labels"].long()
+        labels = model_lib.padded_labels(self.cfg, logits,
+                                         batch["labels"]).long()
         mask = (labels >= 0).float()
         safe = labels.clamp(min=0)
         x32 = logits.float()
@@ -155,7 +156,9 @@ class PipelineTrainer:
         return ((lse - picked) * mask).sum()
 
     def _mask_den(self, batch):
-        """``cross_entropy``'s denominator from the full batch's labels."""
+        """``cross_entropy``'s denominator from the full batch's labels
+        (with the ``-1`` pad over prepended vision tokens, which adds
+        nothing to the count)."""
         mask = (batch["labels"].long() >= 0).float()
         return torch.clamp(mask.sum(), min=1.0)
 

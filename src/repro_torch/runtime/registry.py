@@ -12,6 +12,7 @@ name of the schema: ``local``, ``zero``, ``ps``, ``dynamic``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -89,6 +90,12 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _batch_at(arch, shape, seed: int, step: int):
+    """``batch_for`` with the step positional: a runtime's ``batch_fn``."""
+    from repro_torch.data.pipeline import batch_for
+    return batch_for(arch, shape, step=step, seed=seed)
+
+
 def build_runtime(config, model: Optional[Any] = None,
                   data: Optional[Any] = None, device=None) -> Trainer:
     """Build the configured runtime: the factory behind every launcher.
@@ -102,8 +109,10 @@ def build_runtime(config, model: Optional[Any] = None,
         ``None`` resolves ``config.arch`` (reduced per ``config.reduced``).
     data:
         a ``batch_fn(i) -> batch`` callable or a pipeline exposing
-        ``.batch(i)``; ``None`` builds the deterministic
-        ``SyntheticText`` stream from the config.
+        ``.batch(i)``; ``None`` takes ``batch_for`` at the config's batch,
+        sequence and seed: the deterministic ``SyntheticText`` stream
+        for a text model, stub frames or vision embeddings beside it for
+        the audio and vision frontends.
     device:
         where the runtime runs; ``None`` is the current CUDA device.
     """
@@ -128,9 +137,9 @@ def build_runtime(config, model: Optional[Any] = None,
         arch = model
 
     if data is None:
-        from repro_torch.data.pipeline import SyntheticText
-        batch_fn = SyntheticText(arch.vocab_size, config.seq, config.batch,
-                                 seed=config.seed).batch
+        from repro_torch.configs.base import InputShape
+        shape = InputShape("runtime", config.seq, config.batch, "train")
+        batch_fn = functools.partial(_batch_at, arch, shape, config.seed)
     elif callable(data):
         batch_fn = data
     elif hasattr(data, "batch"):

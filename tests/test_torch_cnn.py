@@ -107,11 +107,16 @@ def test_batch_for_and_make_pipeline_equal_the_reference():
 
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "llava-next-34b"])
 def test_batch_for_other_frontends_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        batch_for(cfg, InputShape("t", 16, 2, "train"))
+    """The streaming pipeline raises for the stub modalities, as the
+    reference's; ``batch_for`` gives their batches, with the reference's
+    keys and shapes (``tests/test_torch_frontend.py`` holds the values)."""
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
     with pytest.raises(ValueError, match="text archs"):
         make_pipeline(cfg, InputShape("t", 16, 2, "train"))
+    mine = batch_for(cfg, InputShape("t", 16, 2, "train"))
+    theirs = jax_batch_for(jcfg, JaxInputShape("t", 16, 2, "train"))
+    assert {k: tuple(v.shape) for k, v in mine.items()} == \
+        {k: v.shape for k, v in theirs.items()}
 
 
 def _carried(seed, classes=10):

@@ -8,7 +8,9 @@ where only PyTorch is installed:
 Each kernel is held against its plain PyTorch version on the same card
 tensors: pack / unpack, the four compression kernels, the RG-LRU scan and
 its fused backward bitwise, flash attention at the reference's tolerances
-(atol 2e-6 in f32, 2e-2 in bf16).
+(atol 2e-6 in f32, 2e-2 in bf16).  The model families without a kernel of
+their own (xLSTM, the audio and vision frontends) run on the card against
+the CPU.
 """
 
 import importlib.util
@@ -71,6 +73,7 @@ def test_pack_unpack_bitwise_vs_plain(cuda, dtype):
     (1, 2, 1, 300, 256, True, 128, 0.0),         # hd 256, the window bites
     (2, 32, 8, 1024, 64, True, 0, 0.0),          # the main path's call
     (2, 10, 1, 1024, 256, True, 2048, 0.0),      # the hybrid path's call
+    (2, 16, 16, 1024, 80, False, 0, 0.0),        # hubert-xlarge's call
     (1, 2, 1, 130, 64, True, 0, 0.0),            # T past a 128-row q tile
     (1, 2, 2, 333, 256, False, 0, 0.0),          # ragged T, no mask
     (1, 2, 2, 70, 96, True, 0, 0.0),             # hd 96 inside 128
@@ -832,3 +835,62 @@ def test_moe_aux_witness_at_two_blocks(cuda):
             torch.distributed.destroy_process_group()
     assert out["worst"] <= SMOKE.GRAD_SCALE_RTOL
     assert out["moved"] > 2 * SMOKE.GRAD_SCALE_RTOL
+
+
+def test_mlstm_forms_agree_on_the_card(cuda):
+    """``chip_smoke.mlstm_forms_on_the_card``: the parallel form against the
+    chunkwise form at the full-width block's (2, 4, 256, 512)."""
+    assert SMOKE.mlstm_forms_on_the_card(cuda) <= SMOKE.MLSTM_FORMS_ATOL
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_block_on_the_card_matches_the_cpu(cuda, kind):
+    """One xLSTM block (reduced width, T = 320: the mLSTM's chunkwise form
+    at chunk 64) on the card against the CPU on the same weights and
+    input: the output and every VJP leaf within 1e-4 of its largest
+    magnitude (``tests/test_torch_xlstm.py``'s bound)."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                              num_layers=8)
+    params = blocks.init_block(torch.Generator().manual_seed(0), cfg, kind)
+    x = torch.randn(2, 320, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for dev in ("cpu", cuda):
+        p = tree.tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        h = x.to(dev).requires_grad_()
+        y, _, _ = blocks.apply_block(p, h, cfg, kind, mode="train")
+        grads = torch.autograd.grad(y, tree.leaves(p) + [h], ct.to(dev))
+        runs.append([y.detach(), *grads])
+    for a, b in zip(runs[1], runs[0]):
+        assert SMOKE.leaf_gap(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hubert-xlarge",
+                                  "llava-next-34b"])
+def test_family_zero_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced xlstm (8 layers: one sLSTM block), hubert and llava under
+    ``zero.json`` with SGD (``chip_smoke.WITNESS_LR``): the card against
+    the port on the CPU from one initial state, losses to rtol 1e-5 (xlstm
+    over 2 steps: its trajectories part at the third even between float32
+    and float64, ``tests/test_torch_xlstm.py``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import RuntimeConfig
+    model = get_config(arch).reduced()
+    if arch == "xlstm-350m":
+        model = dataclasses.replace(model, num_layers=8)
+    config = dataclasses.replace(RuntimeConfig.load(os.path.join(
+        ROOT, "examples", "runtime_configs", "zero.json")), optimizer="sgd",
+        lr=SMOKE.WITNESS_LR, seq=48)
+    try:
+        gap, card, cpu = SMOKE.card_against_cpu(
+            config, model, steps=2 if arch == "xlstm-350m" else SMOKE.STEPS)
+    finally:
+        SMOKE.drop_group()
+    assert np.all(np.isfinite(card))
+    assert gap <= SMOKE.LOSS_RTOL, (card, cpu)

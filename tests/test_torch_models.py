@@ -140,9 +140,23 @@ class TestLayers:
                                 local=False, mode="decode")
 
     def test_unported_families_raise(self):
-        for name in ("xlstm-350m", "hubert-xlarge"):
-            with pytest.raises(NotImplementedError):
-                model.param_shapes(get_config(name).reduced())
+        """Every family builds; what stays unported raises: decode mode
+        of the mLSTM and sLSTM blocks waits for the serving slice, and
+        hubert (encoder-only) has no decode mode, as in the reference."""
+        from repro_torch.models import blocks
+        cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
+                                  num_layers=8)
+        gen = torch.Generator().manual_seed(0)
+        for kind in ("mlstm", "slstm"):
+            p = blocks.init_block(gen, cfg, kind)
+            with pytest.raises(NotImplementedError, match="serving slice"):
+                blocks.apply_block(p, torch.zeros(1, 1, cfg.d_model), cfg,
+                                   kind, mode="decode")
+        hubert = get_config("hubert-xlarge").reduced()
+        p = model.init_params(hubert, gen)
+        with pytest.raises(ValueError, match="encoder-only"):
+            model.forward(hubert, p, {"token": torch.zeros(1, 1).long()},
+                          mode="decode")
 
 
 class TestModel:
@@ -183,7 +197,9 @@ class TestModel:
 
     @pytest.mark.parametrize("name", ["granite-3-2b", "gemma2-2b",
                                       "gemma-7b", "recurrentgemma-2b",
-                                      "granite-moe-1b-a400m", "grok-1-314b"])
+                                      "granite-moe-1b-a400m", "grok-1-314b",
+                                      "xlstm-350m", "hubert-xlarge",
+                                      "llava-next-34b"])
     @pytest.mark.parametrize("reduced", [True, False])
     def test_param_layout_bytes_and_profiles_exact(self, name, reduced):
         cfg, jcfg = get_config(name), jax_get_config(name)
