@@ -120,7 +120,22 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    under ``zero``: flash 288 and the copies against the plan, seconds a
    step, peak, the four strategies bitwise (its stub labels are all 0:
    the loss reaches 0.0 after a step, so the parameters are held too);
-12. ``verify``: the verification layer (``repro_torch.analysis``) on the
+12. ``serve``: serving at full width through ``repro_torch.launch.serve``
+   (greedy, ``torch.inference_mode()``): granite-3-2b (4 requests x 1024
+   prompt tokens -> 64 new), recurrentgemma-2b (2 x 2100 -> 32: past its
+   2048-token window, so the prefill rolls the local caches and the decode
+   rotates them), xlstm-350m (2 x 1024 -> 32) and granite-moe-1b-a400m (4
+   x 1024 -> 32).  Flash against its plain version at each prefill shape
+   (timed at granite-3-2b's: the record ``flash_attention_fwd@serve``) and
+   the scan bitwise at recurrentgemma-2b's (the record
+   ``rglru_scan@serve``); per model the kernels' launches in the prefill
+   (flash a attention block, the scan an RG-LRU block) and none in the
+   decode, the caches' bytes against the reckoning, prefill ms, decode ms
+   a token, tokens/s and peak; one full forward over prompt + served
+   tokens against every decoded position's logits and greedy token; the
+   xLSTM prefill's sLSTM share; then reduced recurrentgemma-2b (window 64,
+   P = 70, T = 100) and granite-3-2b served on the card against the CPU;
+13. ``verify``: the verification layer (``repro_torch.analysis``) on the
    card, one NCCL rank: ``verify_runtime`` on full-width granite-3-2b under
    ``zero`` (its recorded step's 5 all-gathers and 2 reduce-scatters
    against the FlatSpec byte math, its launches against the plan), ``ps``
@@ -131,7 +146,7 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    no finding.  Then one mutation: zero's recorded step against its plan
    with one pull bucket split must be flagged (``SCHED-AG-COUNT``,
    ``SCHED-AG-BYTES``);
-13. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
+14. ``configs``: the checked-in ``zero.json`` / ``local.json`` /
    ``ps.json`` / ``dynamic.json`` / ``dynamic_ps.json`` /
    ``ps_async.json`` / ``ps_async_int8.json`` / ``dynamic_ps_async.json`` /
    ``fleet_async.json`` / ``pipeline.json`` smoke configs through the
@@ -259,6 +274,27 @@ WITNESS_LR = 1e-2         # SGD, as tests/test_torch_xlstm.py's trainers
 # gradient leaf lies within 6.5e-4 of float64 (its float64 witness) and two
 # float32 runs within twice that
 XLSTM_WITNESS_RTOL = 2e-3
+# serving at full width: arch -> (requests, prompt, new tokens), greedy,
+# through repro_torch.launch.serve.  recurrentgemma's prompt passes its
+# 2048-token window, so the prefill rolls the local caches and the decode
+# rotates them
+SERVE = {"granite-3-2b": (4, 1024, 64),
+         "recurrentgemma-2b": (2, 2100, 32),
+         "xlstm-350m": (2, 1024, 32),
+         "granite-moe-1b-a400m": (4, 1024, 32)}
+# decode logits against one full forward over prompt + served tokens: the
+# reference's bound for the claim (tests/test_models.py::
+# test_prefill_decode_matches_full_forward, 5e-4 absolute); xLSTM's against
+# the logits' largest magnitude, the CPU's xLSTM bound
+# (tests/test_torch_serve.py: within 1e-3 of each array's scale, from its
+# float64 witness)
+SERVE_FULL_ATOL = 5e-4
+SERVE_XLSTM_RTOL = 1e-3
+# reduced serving, the card against the port on the CPU from one initial
+# state: logits atol (the full-forward bound's fifth: the card's prefill
+# runs the kernels, the CPU's the plain versions, one step the same ops)
+SERVE_CARD_CPU_ATOL = 1e-4
+SERVE_CARD_CPU = (("recurrentgemma-2b", 70, 100), ("granite-3-2b", 24, 40))
 SMOKE_CONFIGS = ("zero", "local", "ps", "dynamic", "dynamic_ps", "ps_async",
                  "ps_async_int8", "dynamic_ps_async", "fleet_async",
                  "pipeline")
@@ -308,6 +344,9 @@ REPLACES = {
     "compress_densify": "src/repro/kernels/compress/compress.py:210",
     "rglru_scan": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
     "rglru_scan_bwd": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
+    "flash_attention_fwd@serve":
+        "src/repro/kernels/flash_attention/flash_attention.py:111",
+    "rglru_scan@serve": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
 }
 SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
@@ -323,7 +362,10 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "compress_sparsify": "src/repro_torch/csrc/compress.cu",
            "compress_densify": "src/repro_torch/csrc/compress.cu",
            "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
-           "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan.cu"}
+           "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan.cu",
+           "flash_attention_fwd@serve":
+               "src/repro_torch/csrc/flash_attention.cu",
+           "rglru_scan@serve": "src/repro_torch/csrc/rglru_scan.cu"}
 PORT_KERNELS = ("copy_chunks_kernel", "flash_fwd_kernel",    # csrc/*.cu
                 "quantize_pack_kernel", "dequantize_unpack_kernel",
                 "sparsify_kernel", "densify_kernel", "rglru_scan_kernel")
@@ -699,15 +741,15 @@ def check_flash(gen, dev, arch) -> dict:
 
 
 def time_flash(gen, dev, arch, window: int, path: str,
-               causal: bool = True) -> dict:
+               causal: bool = True, b: int = MAIN["batch"],
+               t: int = MAIN["seq"]) -> dict:
     """Flash forward at a path's shape, f32: checked, then timed beside
     its plain version, SDPA and its bound (the bound counts the
     (query, key) pairs the mask keeps at the path's head dim)."""
     from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
                                                          flash_attention)
     import torch.nn.functional as F
-    b, t, h, hkv, hd = (MAIN["batch"], MAIN["seq"], arch.num_heads,
-                        arch.num_kv_heads, arch.head_dim)
+    h, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
     q, k, v = _qkv(gen, dev, b, h, hkv, t, hd, torch.float32, True)
     err = (flash_attention(q, k, v, causal, window, 0.0)
            - _ref_fwd(q, k, v, causal, window, 0.0)).abs().max().item()
@@ -3064,7 +3106,329 @@ def phase_families(profile: bool, smi: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the verification layer on the card
+# phase 12: serving at full width
+# ---------------------------------------------------------------------------
+
+
+def reckon_cache_bytes(cfg, b: int, prompt: int, tokens: int) -> dict:
+    """The caches a prefill of ``prompt`` leaves for ``tokens`` decode
+    steps, by the formula: a global layer's K and V at ``prompt + tokens``
+    slots, a local layer's at its window, each attention cache's int32
+    ``pos``; the recurrences' states in float32."""
+    kv_slot = 2 * b * cfg.num_kv_heads * cfg.head_dim * 4
+    di = int(cfg.mlstm_proj_factor * cfg.d_model)
+    hd = di // cfg.num_heads if cfg.num_heads else 0
+    w = cfg.rglru_lru_width or cfg.d_model
+    out = {"kv": 0, "pos": 0, "state": 0}
+    for kind in cfg.layer_kinds():
+        if kind == "global_attn":
+            out["kv"] += kv_slot * (prompt + tokens)
+        elif kind == "local_attn":
+            out["kv"] += kv_slot * cfg.sliding_window
+        elif kind == "mlstm":
+            out["state"] += 4 * b * cfg.num_heads * (hd * hd + hd + 1)
+        elif kind == "slstm":
+            out["state"] += 4 * 4 * b * cfg.d_model
+        elif kind == "rglru":
+            out["state"] += 4 * b * w * (1 + 3)
+        out["pos"] += 4 if kind in ("global_attn", "local_attn") else 0
+    return out
+
+
+def flash_at_the_prefill_shapes(dev) -> dict:
+    """Flash against its plain version at each served model's prefill
+    shape (atol 2e-6, f32, the model's (B, T, H, hd) views), then timed at
+    the main served path's as the record ``flash_attention_fwd@serve``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
+                                                         flash_attention)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    with torch.no_grad():
+        for name in ("recurrentgemma-2b", "granite-moe-1b-a400m"):
+            cfg = get_config(name)
+            b, t, _ = SERVE[name]
+            q, k, v = _qkv(gen, dev, b, cfg.num_heads, cfg.num_kv_heads, t,
+                           cfg.head_dim, torch.float32, True)
+            err = (flash_attention(q, k, v, True, cfg.sliding_window, 0.0)
+                   - _ref_fwd(q, k, v, True, cfg.sliding_window, 0.0)
+                   ).abs().max().item()
+            if not err <= F32_ATOL:
+                raise AssertionError(f"flash at {name}'s prefill: max abs "
+                                     f"err {err:.3g} > {F32_ATOL}")
+            say("serve", f"flash_attention_fwd at {name}'s prefill (B={b}, "
+                         f"H={cfg.num_heads}/{cfg.num_kv_heads}, T={t}, "
+                         f"hd={cfg.head_dim}, window {cfg.sliding_window})"
+                         f" f32: max abs err {err:.3g} (atol {F32_ATOL})")
+            del q, k, v
+            free_cuda()
+        name = "granite-3-2b"
+        b, t, _ = SERVE[name]
+        return time_flash(gen, dev, get_config(name), 0, "serve", b=b, t=t)
+
+
+def scan_at_the_prefill_shape(dev) -> dict:
+    """``rglru_scan`` bitwise against its plain loop at recurrentgemma's
+    prefill (B, T, W) = (2, 2100, 2560) f32, then timed: the record
+    ``rglru_scan@serve``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rglru_scan import ops, ref
+    cfg = get_config("recurrentgemma-2b")
+    b, t, _ = SERVE[cfg.name]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a, x = _scan_inputs(gen, dev, b, t, cfg.rglru_lru_width, torch.float32)
+    assert_bitwise(ops.scan(a, x), ref.rglru_scan_ref(a, x),
+                   "rglru_scan at the served prefill's shape")
+    warm_up(lambda: ops.scan(a, x))
+    rec = dict(max_abs_err=0.0,
+               ms=cuda_ms(lambda: ops.scan(a, x), 20),
+               plain_ms=cuda_ms(lambda: ref.rglru_scan_ref(a, x), 3,
+                                ahead=False),
+               library_ms=None,
+               bound_ms=3 * 4 * a.numel() / HBM_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    say("serve", f"rglru_scan at the served prefill's (B={b}, T={t}, "
+                 f"W={cfg.rglru_lru_width}) f32: bitwise the plain loop; "
+                 f"{rec['ms']:.4f} ms = {100 * rec['bound_ms'] / rec['ms']:.1f}"
+                 f"% of its byte bound {rec['bound_ms']:.4f} (plain "
+                 f"{rec['plain_ms']:.4f})")
+    return rec
+
+
+def serve_through_the_launcher(name: str, smi: str) -> tuple:
+    """``repro_torch.launch.serve`` on ``name`` at full width, greedy: the
+    kernels' launches counted after the prefill and after the decode (none
+    may come from the decode), the cache bytes against the reckoning,
+    prefill ms, decode ms a token, tokens/s and peak.  Then the
+    full-forward check: one ``forward`` over prompt + served tokens gives
+    every decoded position's logits within the stated bound, and its
+    greedy token wherever its top-2 margin exceeds twice that bound (MoE at
+    capacity factor E / k: no token can drop).  Returns the prefill's
+    launches and the run."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import model
+    from repro_torch.serve import batched_generate
+    b, p, k = SERVE[name]
+    logits, counts = [], {}
+
+    def on_step(i, step_logits, caches):
+        logits.append(step_logits[:, -1].float().clone())
+        if i == 0:
+            counts.update(launch_counts())
+    reset_launch_counts()
+    run = launcher.main(["--arch", name, "--requests", str(b),
+                         "--prompt-len", str(p), "--tokens", str(k),
+                         "--greedy"], on_step=on_step)
+    after = launch_counts()
+    cfg = run["cfg"]
+    kinds = cfg.layer_kinds()
+    want = {"flash_attention_fwd": sum(x.endswith("attn") for x in kinds),
+            "rglru_scan": kinds.count("rglru")}
+    for kernel, n in after.items():
+        if counts[kernel] != want.get(kernel, 0):
+            raise AssertionError(f"{name} prefill: {kernel} launched "
+                                 f"{counts[kernel]} times, expected "
+                                 f"{want.get(kernel, 0)}")
+        if n != counts[kernel]:
+            raise AssertionError(f"{name} decode launched {kernel} "
+                                 f"{n - counts[kernel]} times")
+    prefill_launches = {x: counts[x] for x in want}
+    reckon = reckon_cache_bytes(cfg, b, p, k)
+    if run["cache_bytes"] != sum(reckon.values()):
+        raise AssertionError(f"{name}: caches {run['cache_bytes']} B "
+                             f"against the reckoning {reckon}")
+    peak = run["peak_bytes"] / 2**30
+    say("serve", f"{name} through the launcher ({b} x {p} -> {k} tokens, "
+                 f"greedy): prefill {run['prefill_ms']:.1f} ms, decode "
+                 f"{run['decode_ms_steady']:.2f} ms a token steady "
+                 f"({run['decode_ms']:.2f} with the first), "
+                 f"{run['tokens_per_s']:.1f} tokens/s ({b * k} tokens in "
+                 f"{run['seconds']:.3f} s), peak {peak:.2f} GiB; caches "
+                 f"{run['cache_bytes']:,} B = the reckoning (KV "
+                 f"{reckon['kv']:,}, states {reckon['state']:,}, pos "
+                 f"{reckon['pos']}); prefill launches {prefill_launches}, "
+                 f"none in decode; {smi}")
+
+    check, tokens = cfg, run["tokens"]
+    if cfg.is_moe:
+        # the timed prefill (N = B·P tokens at the config's capacity
+        # factor) may drop tokens that a forward over B·(P + K) keeps: the
+        # check serves again at E / k, where C = N and none can drop
+        check = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                                    / cfg.top_k)
+        logits.clear()
+        tokens = batched_generate(
+            check, run["params"], run["prompts"], max_new_tokens=k,
+            on_step=lambda i, lg, c: logits.append(lg[:, -1].float()
+                                                   .clone()))
+        say("serve", f"{name} served again at capacity factor "
+                     f"{check.capacity_factor:g} for the check: "
+                     f"{int((tokens == run['tokens']).sum())} of {b * k} "
+                     f"tokens equal the timed run's")
+    seq = torch.cat([run["prompts"], tokens], dim=1)
+    with torch.inference_mode():
+        full, _, _ = model.forward(check, run["params"], {"tokens": seq})
+    full = full[:, p - 1:].float()                  # (B, K + 1, V)
+    got = torch.stack(logits, dim=1)
+    gap = (got - full).abs().max().item()
+    bound = SERVE_FULL_ATOL
+    if cfg.family == "ssm":
+        bound = SERVE_XLSTM_RTOL * full.abs().max().item()
+    top2 = full[:, :k].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * bound
+    same = full[:, :k].argmax(-1) == tokens.long()
+    if not gap <= bound or not bool(same[clear].all()):
+        raise AssertionError(f"{name}: decode against the full forward: "
+                             f"worst gap {gap:.3g} (bound {bound:.3g}); "
+                             f"tokens equal {int(same[clear].sum())} of "
+                             f"{int(clear.sum())} clear")
+    say("serve", f"{name} full-forward check over {p + k} positions"
+                 f"{' (capacity factor E/k)' if cfg.is_moe else ''}: decode "
+                 f"logits within {gap:.3g} (bound {bound:.3g}), greedy tokens "
+                 f"equal at {int(clear.sum())} of {b * k} positions clear of "
+                 f"a tie")
+    del full, got, logits, tokens
+    decode_trace(run)
+    return prefill_launches, run
+
+
+def decode_trace(run, steps: int = 3) -> None:
+    """``steps`` decode steps of the served model under ``torch.profiler``
+    (after a fresh prefill and one untraced step): kernels a step, device
+    busy ms a step against the served run's steady decode ms (the idle
+    share), and the five largest kernels."""
+    from repro_torch.models import model
+    from repro_torch.serve import decode as serve
+    cfg, params, prompts = run["cfg"], run["params"], run["prompts"]
+    with torch.inference_mode():
+        logits, caches = serve.prefill(cfg, params, {"tokens": prompts},
+                                       max_len=prompts.shape[1] + steps + 1)
+        state = {"tok": logits[:, -1].argmax(-1)[:, None].to(torch.int32),
+                 "caches": caches}
+
+        def step():
+            logits, state["caches"] = model.decode_step(
+                cfg, params, state["tok"], state["caches"])
+            state["tok"] = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        step()
+        rows = traced(lambda: [step() for _ in range(steps)])
+    busy = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    launches = sum(e.count for e in rows) / steps
+    steady = run["decode_ms_steady"]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    top = "; ".join(f"{e.self_device_time_total / 1e3 / steps:.2f} ms "
+                    f"{e.count // steps}x {e.key[:40]}" for e in rows[:5])
+    say("serve", f"{cfg.name} decode traced ({steps} steps): {launches:.0f} "
+                 f"kernels a step, device busy {busy:.2f} ms a step = "
+                 f"{100 * busy / steady:.1f}% of the served steady "
+                 f"{steady:.2f} ms (idle {100 * max(0.0, 1 - busy / steady):.1f}"
+                 f"%); largest: {top}")
+
+
+def slstm_prefill_share(run) -> None:
+    """The served xLSTM's prefill again, the card synchronised at each
+    sLSTM block's edges: their host seconds against the prefill's (the
+    loop is host-paced)."""
+    from repro_torch.models import blocks
+    from repro_torch.serve import decode as serve
+    init, apply = blocks.RECURRENT["slstm"]
+    spent = []
+
+    def clocked(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+    blocks.RECURRENT["slstm"] = (init, clocked)
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve.prefill(run["cfg"], run["params"],
+                          {"tokens": run["prompts"]})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        blocks.RECURRENT["slstm"] = (init, apply)
+    say("serve", f"xlstm-350m prefill again with the sLSTM blocks clocked: "
+                 f"{len(spent)} blocks {sum(spent):.3f} s of "
+                 f"{wall:.3f} s = {100 * sum(spent) / wall:.1f}% (the served"
+                 f" prefill took {run['prefill_ms']:.1f} ms)")
+
+
+def serve_card_against_cpu(name: str, prompt: int, total: int,
+                           dev) -> float:
+    """Reduced ``name`` served greedily on the card and by the port on the
+    CPU from one initial state (the CPU's parameters copied over): logits
+    at every step within ``SERVE_CARD_CPU_ATOL``, tokens wherever the CPU's
+    top-2 margin exceeds twice it.  Returns the worst logit gap."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve import batched_generate
+    import numpy as np
+    cfg = get_config(name).reduced(
+        num_layers=3 if name == "recurrentgemma-2b" else 2)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, prompt), dtype=np.int32))
+    runs = []
+    for device in ("cpu", dev):
+        logits = []
+        out = batched_generate(
+            cfg, tree.tree_map(lambda x: x.to(device), params),
+            prompts.to(device), max_new_tokens=total - prompt,
+            on_step=lambda i, lg, c: logits.append(lg[:, -1].cpu()))
+        runs.append((out.cpu(), torch.stack(logits, dim=1)))
+    (cpu_out, cpu_logits), (card_out, card_logits) = runs
+    gap = (card_logits - cpu_logits).abs().max().item()
+    top2 = cpu_logits[:, :-1].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * SERVE_CARD_CPU_ATOL
+    if not gap <= SERVE_CARD_CPU_ATOL or \
+            not torch.equal(card_out[clear], cpu_out[clear]):
+        raise AssertionError(f"reduced {name} served on the card against "
+                             f"the CPU: logit gap {gap:.3g} (atol "
+                             f"{SERVE_CARD_CPU_ATOL}) or tokens differ")
+    return gap
+
+
+def phase_serve(smi: str) -> tuple:
+    """Serving at full width through ``repro_torch.launch.serve``:
+    granite-3-2b (the main served path), recurrentgemma-2b past its
+    window, xlstm-350m and granite-moe-1b-a400m; flash and the scan at the
+    prefill shapes; reduced serving on the card against the CPU.  Returns
+    the two records and their launches."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    records = {"flash_attention_fwd@serve": flash_at_the_prefill_shapes(dev),
+               "rglru_scan@serve": scan_at_the_prefill_shape(dev)}
+    free_cuda()
+    counts = {}
+    for name in SERVE:
+        launches, run = serve_through_the_launcher(name, smi)
+        if name == "granite-3-2b":
+            counts["flash_attention_fwd@serve"] = \
+                launches["flash_attention_fwd"]
+        if name == "recurrentgemma-2b":
+            counts["rglru_scan@serve"] = launches["rglru_scan"]
+        if name == "xlstm-350m":
+            slstm_prefill_share(run)
+        del run
+        free_cuda()
+    for name, prompt, total in SERVE_CARD_CPU:
+        gap = serve_card_against_cpu(name, prompt, total, dev)
+        say("serve", f"reduced {name} (P = {prompt}, T = {total}) served on "
+                     f"the card and on the CPU from one initial state: "
+                     f"logits within {gap:.3g} (atol {SERVE_CARD_CPU_ATOL}),"
+                     f" tokens equal")
+    say("serve", f"phase {time.perf_counter() - t0:.1f} s; {smi}")
+    return records, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the verification layer on the card
 # ---------------------------------------------------------------------------
 
 
@@ -3271,7 +3635,7 @@ def profile_step(rt, steady: float, phase: str = "profile") -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the checked-in smoke configs through the launcher
+# phase 14: the checked-in smoke configs through the launcher
 # ---------------------------------------------------------------------------
 
 
@@ -3527,6 +3891,7 @@ def main(argv=None) -> None:
     moe_flash_rec, moe_counts = timed("moe", phase_moe, args.profile, smi)
     hubert_flash_rec, family_counts = timed("families", phase_families,
                                             args.profile, smi)
+    serve_records, serve_counts = timed("serve", phase_serve, smi)
     timed("verify", phase_verify, smi)
     timed("configs", phase_configs)
     say("time", f"phase wall seconds {walls}; "
@@ -3558,6 +3923,10 @@ def main(argv=None) -> None:
     for path, path_counts in family_counts.items():
         for name in ("bucket_pack", "bucket_unpack"):
             records[name][f"{path}_launches"] = path_counts[name]
+    # the served prefills: flash at granite-3-2b's (B = 4) and the scan at
+    # recurrentgemma-2b's (T = 2100), records of their own
+    records.update(serve_records)
+    counts.update(serve_counts)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

@@ -1,4 +1,5 @@
-"""Carry weights and trainer states across from the reference, as numpy.
+"""Carry weights, trainer states and decode caches across from the
+reference, as numpy.
 
 The reference draws its initial weights with ``jax.random``, which torch
 cannot replay; a parity check therefore initialises in the reference,
@@ -8,7 +9,7 @@ imports the reference: it takes plain numpy trees.
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +25,35 @@ def params_from_numpy(numpy_tree: Any, device="cpu",
         t = torch.from_numpy(np.array(x)).to(device)
         return t.requires_grad_() if requires_grad else t
     return tree.tree_map(convert, numpy_tree)
+
+
+def caches_from_numpy(cfg, numpy_caches: Sequence[Any], device="cpu"
+                      ) -> List[Any]:
+    """The reference's per-layer decode caches as the port's: one
+    ``KVCache``, ``MLSTMState``, ``SLSTMState`` or ``RGLRUState`` a layer
+    (by ``cfg.layer_kinds()``), each given as its fields in order (the
+    reference's NamedTuple with numpy leaves, or any sequence of arrays).
+    Every array is copied, so a decode that writes the port's caches in
+    place leaves the given arrays alone."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.ssm import MLSTMState, RGLRUState, SLSTMState
+    kinds = cfg.layer_kinds()
+    if len(numpy_caches) != len(kinds):
+        raise ValueError(f"{len(numpy_caches)} caches for {len(kinds)} "
+                         f"layers")
+    classes = {"global_attn": KVCache, "local_attn": KVCache,
+               "mlstm": MLSTMState, "slstm": SLSTMState,
+               "rglru": RGLRUState}
+    out = []
+    for kind, cache in zip(kinds, numpy_caches):
+        cls = classes[kind]
+        fields = list(cache)
+        if len(fields) != len(cls._fields):
+            raise ValueError(f"a {kind} cache has the fields "
+                             f"{cls._fields}, got {len(fields)} arrays")
+        out.append(cls(*(torch.from_numpy(np.array(x)).to(device)
+                         for x in fields)))
+    return out
 
 
 def zero_state_from_numpy(trainer, flat_params: Sequence[np.ndarray],

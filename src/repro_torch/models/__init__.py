@@ -2,7 +2,8 @@
 MoE blocks; text, stub audio and stub vision frontends), and the paper's
 CNN workload tables with its trainable small CNN."""
 
-from repro_torch.models.model import (cross_entropy, forward, init_params,
+from repro_torch.models.model import (cross_entropy, decode_step, forward,
+                                      init_caches, init_params,
                                       num_sched_layers, param_count,
                                       param_shapes, params_from_sched_layers,
                                       sched_layer_bytes, sched_layer_trees,
@@ -13,7 +14,8 @@ from repro_torch.models.cnn import (PAPER_CNNS, small_cnn_forward,
                                     small_cnn_init, small_cnn_loss)
 
 __all__ = [
-    "init_params", "forward", "train_loss", "cross_entropy",
+    "init_params", "forward", "train_loss", "decode_step", "init_caches",
+    "cross_entropy",
     "num_sched_layers", "sched_layer_trees", "params_from_sched_layers",
     "sched_layer_bytes", "tree_bytes", "param_count", "param_shapes",
     "layer_profiles", "block_forward_flops", "model_flops_per_token",

@@ -1,10 +1,22 @@
-"""GQA attention with rope, sliding window and logit softcap (train/prefill).
+"""GQA attention with rope, sliding window, logit softcap and a KV cache.
 
-On a CUDA tensor every train / prefill call goes through the flash-attention
-kernel (``kernels/flash_attention``), whatever T is.  On the CPU the plain
-``_sdpa`` runs up to ``FULL_ATTN_MAX`` and the blockwise ``_sdpa_chunked``
-above it, as in the reference.  Decode mode and its KV cache wait for the
-serving slice.
+Three modes share one code path, as in the reference:
+
+* ``train`` / ``prefill`` — full-sequence attention, causal or
+  bidirectional (encoder).  On a CUDA tensor every call goes through the
+  flash-attention kernel (``kernels/flash_attention``), whatever T is; on
+  the CPU the plain ``_sdpa`` runs up to ``FULL_ATTN_MAX`` and the
+  blockwise ``_sdpa_chunked`` above it.  Prefill also returns the cache.
+* ``decode`` — one new token against the cache: the plain ``_sdpa`` over
+  every slot with a slot-validity bias, on either device (the reference
+  computes it outside its Pallas kernel too).  Global layers cache the
+  whole sequence; local layers keep a rotating window-sized cache in which
+  absolute position p sits at slot ``p % S``.
+
+Decode writes the new key and value into the cache **in place** (an index
+copy at a slot computed on the device, so no host sync) and returns the
+same tensors with ``pos + 1``; the reference returns new arrays.  A caller
+that keeps a cache across steps must clone it.
 """
 
 from __future__ import annotations
@@ -17,10 +29,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense, init_dense, softcap
-
-DECODE_PENDING = ("decode mode and the KV cache are not ported yet: they "
-                  "wait for the serving slice (ROADMAP, queue 1)")
-
 
 class KVCache(NamedTuple):
     k: torch.Tensor       # (B, S, n_kv, head_dim)
@@ -36,6 +44,17 @@ def init_attn_params(gen, cfg: ArchConfig, dtype=torch.float32,
         "wv": init_dense(gen, cfg.d_model, cfg.kv_dim, dtype, device),
         "wo": init_dense(gen, cfg.q_dim, cfg.d_model, dtype, device),
     }
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, local: bool,
+               dtype=torch.float32, device="cpu") -> KVCache:
+    """Zeros; a local layer's cache has ``min(max_len, window)`` slots."""
+    s = min(max_len, cfg.sliding_window) if local and cfg.sliding_window \
+        else max_len
+    shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device),
+                   pos=torch.zeros((), dtype=torch.int32, device=device))
 
 
 def _mask_bias(q_pos, k_pos, *, causal: bool, window: int, dtype):
@@ -136,8 +155,6 @@ def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
               positions: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (output (B,T,d_model), updated cache or None)."""
-    if mode not in ("train", "prefill"):
-        raise NotImplementedError(DECODE_PENDING)
     b, t, _ = x.shape
     n_rep = cfg.num_heads // cfg.num_kv_heads
     window = cfg.sliding_window if local else 0
@@ -145,6 +162,12 @@ def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
     q = dense(x, params["wq"]).reshape(b, t, cfg.num_heads, cfg.head_dim)
     k = dense(x, params["wk"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
     v = dense(x, params["wv"]).reshape(b, t, cfg.num_kv_heads, cfg.head_dim)
+
+    if mode == "decode":
+        out, new_cache = _decode(q, k, v, cache, cfg, window, n_rep)
+        return dense(out, params["wo"]), new_cache
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"unknown attention mode {mode!r}")
 
     pos = torch.arange(t, device=x.device) if positions is None else positions
     q = apply_rope(q, pos, cfg.rope_theta)
@@ -177,6 +200,45 @@ def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
             cv = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, padw))
         else:
             ck, cv = k, v
-        new_cache = KVCache(k=ck, v=cv, pos=torch.tensor(
-            t, dtype=torch.int32, device=x.device))
+        new_cache = KVCache(k=ck, v=cv, pos=torch.full(
+            (), t, dtype=torch.int32, device=x.device))
     return dense(out, params["wo"]), new_cache
+
+
+def _decode(q, k, v, cache: Optional[KVCache], cfg: ArchConfig, window: int,
+            n_rep: int) -> Tuple[torch.Tensor, KVCache]:
+    """One token (T = 1) against ``cache``, written into it in place.
+
+    ``pos`` stays a 0-d device tensor throughout: the slot, the key
+    positions and the bias are computed on the device."""
+    b, t = q.shape[:2]
+    if cache is None or t != 1:
+        raise ValueError(f"decode takes one token and a cache, got T = {t} "
+                         f"and cache {type(cache).__name__}")
+    pos = cache.pos                    # () int32: the new token's position
+    q = apply_rope(q, pos[None][None, :], cfg.rope_theta)
+    k = apply_rope(k, pos[None][None, :], cfg.rope_theta)
+
+    s = cache.k.shape[1]
+    if window and window < 10**9:
+        slot = torch.remainder(pos, s)
+    else:
+        # jax.lax.dynamic_update_slice clamps its start: at pos >= S the
+        # reference overwrites the last slot, and so does the port
+        slot = pos.clamp(max=s - 1)
+    index = slot.reshape(1).long()
+    cache.k.index_copy_(1, index, k)
+    cache.v.index_copy_(1, index, v)
+
+    # key positions: slot i holds the latest absolute p <= pos with
+    # p % s == i (a floor modulus of a negative number: torch.remainder)
+    slots = torch.arange(s, device=q.device)
+    kpos = pos - torch.remainder(pos - slots, s) if window else slots
+    valid = (kpos <= pos) & (kpos >= 0)
+    zero = torch.zeros((), dtype=torch.float32, device=q.device)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=q.device)
+    bias = torch.where(valid, zero, neg)[None, :]
+
+    out = _sdpa(q, cache.k, cache.v, bias, n_rep, cfg.attn_logit_softcap)
+    return out.reshape(b, t, cfg.q_dim), KVCache(k=cache.k, v=cache.v,
+                                                 pos=pos + 1)

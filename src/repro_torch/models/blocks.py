@@ -50,6 +50,21 @@ def init_block(gen, cfg: ArchConfig, kind: LayerKind, dtype=torch.float32,
     return p
 
 
+def init_block_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
+                     max_len: int, dtype=torch.float32, device="cpu"):
+    """The empty decode state of one block: a KV cache (a local layer's of
+    ``min(max_len, window)`` slots) or the recurrence's zero state."""
+    _check(cfg, kind)
+    if kind in ATTN_KINDS:
+        return attention.init_cache(cfg, batch, max_len,
+                                    local=(kind == "local_attn"),
+                                    dtype=dtype, device=device)
+    if kind == "rglru":
+        return ssm.init_rglru_state(cfg, batch, dtype=dtype, device=device)
+    init = ssm.init_mlstm_state if kind == "mlstm" else ssm.init_slstm_state
+    return init(cfg, batch, device=device)
+
+
 def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: LayerKind,
                 *, mode: str, cache: Any = None
                 ) -> Tuple[torch.Tensor, Any, torch.Tensor]:

@@ -7,6 +7,8 @@ that ``dense(x, w) = x @ w``.  Initialisers draw from an explicit
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -90,12 +92,21 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+@functools.lru_cache(maxsize=64)
+def _rope_table(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """``rope_frequencies`` as float32 on ``device``, uploaded once: an
+    upload at every call would synchronise the host with the card in each
+    decode step.  Never an inference tensor, so autograd may use it."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(rope_frequencies(head_dim, theta),
+                               dtype=torch.float32, device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., T, H, head_dim); positions: broadcastable to (..., T)."""
-    head_dim = x.shape[-1]
-    freqs = torch.as_tensor(rope_frequencies(head_dim, theta),
-                            dtype=torch.float32, device=x.device)
+    freqs = _rope_table(x.shape[-1], float(theta), x.device)
     angles = positions[..., None].float() * freqs        # (..., T, hd/2)
     angles = angles[..., None, :]                         # (..., T, 1, hd/2)
     cos, sin = torch.cos(angles), torch.sin(angles)

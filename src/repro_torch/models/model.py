@@ -12,6 +12,10 @@ dict as the reference's::
 ``num_sched_layers = cfg.num_layers + 2``; per-sched-layer byte counts and
 FLOPs come from ``profiles.py`` and feed the DP scheduler directly.
 
+``forward`` runs ``train``, ``prefill`` (which also returns every block's
+cache) and ``decode`` (one token against the caches: ``decode_step``,
+driven by ``serve/decode.py``); ``init_caches`` gives the empty caches.
+
 The audio frontend (hubert) takes pre-embedded frames through a learnt
 ``in_proj``; the vision frontend (llava) prepends the batch's
 ``vision_embeds`` to the token embeddings, and the loss pads the labels
@@ -28,7 +32,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks
-from repro_torch.models.attention import DECODE_PENDING
 from repro_torch.models.layers import (dense, embed, init_dense,
                                        init_embedding, logits_from_embedding,
                                        rms_norm, softcap)
@@ -80,15 +83,19 @@ def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, mode: str = "train", remat: bool = False,
-            last_only: bool = False
+            *, mode: str = "train", caches: Optional[List[Any]] = None,
+            remat: bool = False, last_only: bool = False
             ) -> Tuple[torch.Tensor, Optional[List[Any]], torch.Tensor]:
-    """Returns (logits, new_caches_or_None, aux_loss); train / prefill."""
+    """Returns (logits, new_caches_or_None, aux_loss).
+
+    ``decode`` embeds ``batch["token"]`` (B, 1) and steps every block from
+    ``caches`` (a KV cache is written in place: ``models/attention.py``)."""
     if mode == "decode":
         if cfg.frontend == "audio":
             raise ValueError("encoder-only model has no decode mode")
-        raise NotImplementedError(DECODE_PENDING)
-    x = _embed_inputs(cfg, params, batch)
+        x = embed(batch["token"], params["embed"]["table"])
+    else:
+        x = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, kind in enumerate(cfg.layer_kinds()):
@@ -98,14 +105,32 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
                     p, h, cfg, _k, mode="train"),
                 params["layers"][i], x, use_reentrant=False)
         else:
-            x, c, a = blocks.apply_block(params["layers"][i], x, cfg, kind,
-                                         mode=mode)
+            x, c, a = blocks.apply_block(
+                params["layers"][i], x, cfg, kind, mode=mode,
+                cache=None if caches is None else caches[i])
         new_caches.append(c)
         aux = aux + a
     if last_only:
         x = x[:, -1:]           # narrow before the (huge) vocab projection
     logits = _head(cfg, params, x)
-    return logits, (new_caches if mode == "prefill" else None), aux
+    out_caches = new_caches if mode in ("prefill", "decode") else None
+    return logits, out_caches, aux
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.float32, device="cpu") -> List[Any]:
+    """Every block's empty decode state (``blocks.init_block_cache``)."""
+    return [blocks.init_block_cache(cfg, kind, batch, max_len, dtype, device)
+            for kind in cfg.layer_kinds()]
+
+
+def decode_step(cfg: ArchConfig, params: Params, token: torch.Tensor,
+                caches: List[Any]) -> Tuple[torch.Tensor, List[Any]]:
+    """serve_step: one token (B, 1) against the caches → (logits (B, 1, V),
+    caches)."""
+    logits, new_caches, _ = forward(cfg, params, {"token": token},
+                                    mode="decode", caches=caches)
+    return logits, new_caches
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Recurrent blocks: xLSTM (mLSTM + sLSTM) and the RG-LRU of RecurrentGemma /
-Griffin (train, prefill).
+Griffin (train, prefill and the O(1)-state decode step).
 
 All three follow the reference (``repro/models/ssm.py``), not the published
 models: the same parameter keys, shapes and arithmetic order.
@@ -20,9 +20,13 @@ models: the same parameter keys, shapes and arithmetic order.
   reference's ``use_kernel`` switch is gone: dispatch goes by the
   tensor's device, as for attention).
 
-The decode steps ``_mlstm_step`` / ``_slstm_step`` are pure functions
-here; decode mode itself (the O(1)-state step behind ``mode="decode"``)
-waits for the serving slice.
+``mode="decode"`` takes one token (T = 1) and the block's state (the
+prefill's, or ``init_*_state``) and returns the next state, as the
+reference: the mLSTM through ``_mlstm_step``, the sLSTM through
+``_slstm_step``, the RG-LRU through its 4-tap conv over ``state.conv``
+and the token, then ``h = a·h + x_in`` (plain torch on either device: one
+step needs no scan kernel).  States are new tensors, never updated in
+place.
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.models.attention import DECODE_PENDING
 from repro_torch.models.layers import dense, init_dense, normal
 
 
@@ -76,6 +79,14 @@ def init_mlstm_params(gen, cfg: ArchConfig, dtype=torch.float32,
         "wf": init_dense(gen, di, cfg.num_heads, dtype, device),
         "down": init_dense(gen, di, d, dtype, device),
     }
+
+
+def _check_step(mode: str, state, t: int) -> None:
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "decode" and (state is None or t != 1):
+        raise ValueError(f"decode takes one token and a state, got T = {t} "
+                         f"and state {type(state).__name__}")
 
 
 def _causal(t: int, device) -> torch.Tensor:
@@ -195,10 +206,10 @@ def init_mlstm_state(cfg: ArchConfig, batch: int,
 def apply_mlstm(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                 state: Optional[MLSTMState] = None
                 ) -> Tuple[torch.Tensor, Optional[MLSTMState]]:
-    """Returns (output (B, T, d_model), the prefill state or None)."""
-    if mode not in ("train", "prefill"):
-        raise NotImplementedError(DECODE_PENDING)
+    """Returns (output (B, T, d_model), the prefill / decode state or
+    None)."""
     b, t, _ = x.shape
+    _check_step(mode, state, t)
     heads = cfg.num_heads
     up = dense(x, params["up"])
     gate = F.silu(dense(x, params["up_gate"]))
@@ -211,6 +222,10 @@ def apply_mlstm(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
     ig = dense(up, params["wi"]).transpose(1, 2)         # (B, H, T)
     fg = dense(up, params["wf"]).transpose(1, 2)
 
+    if mode == "decode":
+        h, new_state = _mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                   ig[:, :, 0], fg[:, :, 0], state)
+        return dense(h.reshape(b, 1, di) * gate, params["down"]), new_state
     if t > MLSTM_CHUNK:
         h, final_state = _mlstm_chunkwise(q, k, v, ig, fg)
     else:
@@ -287,10 +302,13 @@ def _slstm_step(params, x_t: torch.Tensor, s: SLSTMState) -> SLSTMState:
 def apply_slstm(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                 state: Optional[SLSTMState] = None
                 ) -> Tuple[torch.Tensor, Optional[SLSTMState]]:
-    """Returns (output (B, T, d_model), the prefill state or None)."""
-    if mode not in ("train", "prefill"):
-        raise NotImplementedError(DECODE_PENDING)
+    """Returns (output (B, T, d_model), the prefill / decode state or
+    None)."""
     b, t, _ = x.shape
+    _check_step(mode, state, t)
+    if mode == "decode":
+        s = _slstm_step(params, x[:, 0], state)
+        return dense(s.h[:, None].to(x.dtype), params["down"]), s
     s = init_slstm_state(cfg, b, x.device)
     # the input products for all T at once: one (B·T, d) × (d, d) a gate
     xw = {g: dense(x, params[f"w{g}"]) for g in SLSTM_GATES}
@@ -367,12 +385,23 @@ def _rglru_gates(params, u: torch.Tensor):
 def apply_rglru(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
                 state: Optional[RGLRUState] = None
                 ) -> Tuple[torch.Tensor, Optional[RGLRUState]]:
-    """Returns (output (B, T, d_model), the prefill state or None)."""
-    if mode not in ("train", "prefill"):
-        raise NotImplementedError(DECODE_PENDING)
+    """Returns (output (B, T, d_model), the prefill / decode state or
+    None)."""
     b, t, _ = x.shape
+    _check_step(mode, state, t)
     gate = F.gelu(dense(x, params["in_gate"]), approximate="tanh")
     u = dense(x, params["in_x"])                                  # (B, T, W)
+
+    if mode == "decode":
+        hist = torch.cat([state.conv, u], dim=1)                  # (B, 4, W)
+        # a Python sum from 0, in tap order, as the prefill's
+        conv = sum(hist[:, i] * params["conv"][i].to(u.dtype)
+                   for i in range(_CONV_WIDTH))
+        a, x_in = _rglru_gates(params, conv)
+        h = a * state.h + x_in
+        out = h[:, None].to(x.dtype)
+        return dense(out * gate, params["out"]), RGLRUState(h=h,
+                                                            conv=hist[:, 1:])
 
     pad = torch.zeros((b, _CONV_WIDTH - 1, u.shape[-1]), dtype=u.dtype,
                       device=u.device)

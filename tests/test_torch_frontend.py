@@ -24,6 +24,7 @@ import os
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -38,7 +39,6 @@ from repro_torch.configs.base import InputShape
 from repro_torch.data import batch_for
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import frontend, model
-from repro_torch.models.attention import DECODE_PENDING
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests", "helpers"))
@@ -165,15 +165,36 @@ def test_vision_labels_are_padded_over_the_prepended_tokens():
     np.testing.assert_allclose(got.item(), want.item(), rtol=1e-6)
 
 
-def test_vision_decode_waits_for_the_serving_slice():
-    """A decoder's decode mode waits for the serving slice (hubert's
-    encoder-only ``ValueError``: ``tests/test_torch_models.py``)."""
-    cfg, _ = _configs("llava-next-34b")
-    params = model.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        model.forward(cfg, params, {"token": torch.zeros(1, 1).long()},
-                      mode="decode")
-    assert "serving slice" in DECODE_PENDING
+def test_vision_decode_matches_reference():
+    """llava's decoder decodes text tokens: a prefill of 24 text tokens,
+    then 4 decode steps, logits and caches against the reference within
+    the logit bound of ``tests/test_torch_serve.py`` (2e-5)."""
+    from repro.serve import decode as jax_serve
+    from repro_torch.serve import decode as serve
+    cfg, jcfg = _configs("llava-next-34b")
+    params = jax.tree_util.tree_map(np.asarray, jax_model.init_params(
+        jcfg, jax.random.PRNGKey(1)))
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 24),
+                                             dtype=np.int32)
+    want, jcaches = jax_serve.prefill(jcfg, params, {"tokens": toks},
+                                      max_len=28)
+    tparams = params_from_numpy(params)
+    with torch.inference_mode():
+        got, caches = serve.prefill(cfg, tparams,
+                                    {"tokens": torch.from_numpy(toks)},
+                                    max_len=28)
+        for i in range(5):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=2e-5, err_msg=f"step {i}")
+            for mine, theirs in zip(caches, jcaches):
+                for a, b in zip(mine, theirs):
+                    np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                               atol=2e-5)
+            tok = np.asarray(jnp.argmax(want[:, -1], -1))[:, None] \
+                .astype(np.int32)
+            want, jcaches = jax_model.decode_step(jcfg, params, tok, jcaches)
+            got, caches = model.decode_step(cfg, tparams,
+                                            torch.from_numpy(tok), caches)
 
 
 # ---------------------------------------------------------------------------

@@ -10,7 +10,8 @@ tensors: pack / unpack, the four compression kernels, the RG-LRU scan and
 its fused backward bitwise, flash attention at the reference's tolerances
 (atol 2e-6 in f32, 2e-2 in bf16).  The model families without a kernel of
 their own (xLSTM, the audio and vision frontends) run on the card against
-the CPU.
+the CPU; so does reduced serving, whose decode steps and generate loop run
+under ``torch.cuda.set_sync_debug_mode("error")``.
 """
 
 import importlib.util
@@ -894,3 +895,85 @@ def test_family_zero_on_the_card_matches_the_cpu(cuda, arch):
         SMOKE.drop_group()
     assert np.all(np.isfinite(card))
     assert gap <= SMOKE.LOSS_RTOL, (card, cpu)
+
+
+# ---------------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------------
+
+
+def _serve_setup(dev):
+    """Reduced recurrentgemma-2b with one block of each kind the served
+    models decode through a cache (RG-LRU, local and global attention;
+    window 64), its parameters and a 70-token prompt past the window."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(
+        get_config("recurrentgemma-2b").reduced(num_layers=3),
+        layer_pattern=("rglru", "local_attn", "global_attn"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 70), dtype=np.int32)).to(dev)
+    return cfg, params, prompts
+
+
+def test_decode_steps_never_synchronise(cuda):
+    """4 decode steps under ``set_sync_debug_mode("error")``: the slot,
+    key positions and bias come from the device ``pos``, the rope table is
+    uploaded once, the next token is the device argmax."""
+    from repro_torch.models import model
+    from repro_torch.serve import decode as serve
+    cfg, params, prompts = _serve_setup(cuda)
+    with torch.inference_mode():
+        logits, caches = serve.prefill(cfg, params, {"tokens": prompts},
+                                       max_len=74)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(4):
+                logits, caches = model.decode_step(cfg, params, tok, caches)
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert [int(c.pos) for c in caches[1:]] == [74, 74]
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_batched_generate_never_synchronises(cuda):
+    """The whole generate loop, prefill included (flash, the scan, the
+    local cache's roll), under ``set_sync_debug_mode("error")`` after a
+    first run has built the kernels; the same tokens as that run."""
+    from repro_torch.serve import batched_generate
+    cfg, params, prompts = _serve_setup(cuda)
+    first = batched_generate(cfg, params, prompts, max_new_tokens=6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = batched_generate(cfg, params, prompts, max_new_tokens=6)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, again)
+
+
+def test_serve_launcher_runs_on_the_card_by_default(cuda, capsys):
+    from repro_torch.launch import serve as launcher
+    reset_launch_counts()
+    run = launcher.main(["--arch", "recurrentgemma-2b", "--reduced",
+                         "--requests", "2", "--prompt-len", "80",
+                         "--tokens", "4", "--greedy"])
+    assert run["tokens"].is_cuda and run["peak_bytes"] > 0
+    assert "peak" in capsys.readouterr().out
+    # reduced: 2 RG-LRU blocks, each one scan launch in the prefill
+    assert launch_counts()["rglru_scan"] == 2
+
+
+@pytest.mark.parametrize("name,prompt,total", SMOKE.SERVE_CARD_CPU)
+def test_reduced_serving_on_the_card_matches_the_cpu(cuda, name, prompt,
+                                                     total):
+    """``chip_smoke.serve_card_against_cpu``: logits within
+    ``SERVE_CARD_CPU_ATOL`` at every step, tokens where clear of a tie."""
+    gap = SMOKE.serve_card_against_cpu(name, prompt, total, cuda)
+    assert gap <= SMOKE.SERVE_CARD_CPU_ATOL

@@ -131,27 +131,44 @@ class TestLayers:
                                            causal=causal, window=window)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
 
-    def test_decode_mode_waits_for_serving_slice(self):
-        cfg, _ = _configs("granite-3-2b")
-        p = model.init_params(cfg, torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            attention.attention(p["layers"][0]["attn"],
-                                torch.zeros(1, 1, cfg.d_model), cfg,
-                                local=False, mode="decode")
+    @pytest.mark.parametrize("local", [False, True])
+    def test_attention_decode_matches_reference(self, local):
+        """Decode attention, 6 steps from a 70-token prefill's cache: the
+        reduced window of 64 rotates (local), the global cache grows into
+        its padding; outputs atol 2e-6 and the cached keys and values (up
+        to ~5 in magnitude) 5e-6: float32 sums in another order."""
+        cfg, jcfg = _configs("gemma2-2b")
+        rng = np.random.default_rng(4)
+        p = jax.tree_util.tree_map(np.asarray, jax_attention.init_attn_params(
+            jax.random.PRNGKey(3), jcfg))
+        x = _rand(rng, (2, 70, cfg.d_model))
+        _, cache = jax_attention.attention(p, x, jcfg, local=local,
+                                           mode="prefill")
+        if not local:
+            cache = jax_attention.KVCache(
+                k=jnp.pad(cache.k, ((0, 0), (0, 6), (0, 0), (0, 0))),
+                v=jnp.pad(cache.v, ((0, 0), (0, 6), (0, 0), (0, 0))),
+                pos=cache.pos)
+        mine = attention.KVCache(*(_t(np.array(c)) for c in cache))
+        for _ in range(6):
+            xt = _rand(rng, (2, 1, cfg.d_model))
+            want, cache = jax_attention.attention(p, xt, jcfg, local=local,
+                                                  mode="decode", cache=cache)
+            got, mine = attention.attention(params_from_numpy(p), _t(xt),
+                                            cfg, local=local, mode="decode",
+                                            cache=mine)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=2e-6)
+            for a, b in zip(mine, cache):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                           atol=5e-6)
+        assert int(mine.pos) == 76 and mine.k.shape[1] == (64 if local
+                                                          else 76)
 
     def test_unported_families_raise(self):
-        """Every family builds; what stays unported raises: decode mode
-        of the mLSTM and sLSTM blocks waits for the serving slice, and
-        hubert (encoder-only) has no decode mode, as in the reference."""
-        from repro_torch.models import blocks
-        cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
-                                  num_layers=8)
+        """Every family builds and decodes, except hubert (encoder-only),
+        which has no decode mode, as in the reference."""
         gen = torch.Generator().manual_seed(0)
-        for kind in ("mlstm", "slstm"):
-            p = blocks.init_block(gen, cfg, kind)
-            with pytest.raises(NotImplementedError, match="serving slice"):
-                blocks.apply_block(p, torch.zeros(1, 1, cfg.d_model), cfg,
-                                   kind, mode="decode")
         hubert = get_config("hubert-xlarge").reduced()
         p = model.init_params(hubert, gen)
         with pytest.raises(ValueError, match="encoder-only"):

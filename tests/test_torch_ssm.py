@@ -262,13 +262,34 @@ class TestRGLRUBlock:
         assert tuple(st.h.shape) == wst.h.shape
         assert tuple(st.conv.shape) == wst.conv.shape
 
-    def test_decode_waits_for_the_serving_slice(self):
-        cfg, _, params, _ = _block_setup()
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            ssm.apply_rglru(params_from_numpy(params),
-                            torch.zeros(1, 1, cfg.d_model), cfg,
-                            mode="decode",
-                            state=ssm.init_rglru_state(cfg, 1))
+    def test_decode_matches_reference(self):
+        """The block's decode, 5 steps from its 64-token prefill state:
+        the 4-tap conv over ``state.conv`` and the token, then ``h = a·h +
+        x_in``; outputs within the block's bound, the state atol 2e-6 (its
+        ``conv`` holds the input projection ``x @ in_x``, a float32 sum in
+        another order)."""
+        cfg, jcfg, params, x = _block_setup(seed=3)
+        _, wstate = jax_ssm.apply_rglru(params, x, jcfg, mode="prefill")
+        tp = params_from_numpy(params)
+        _, state = ssm.apply_rglru(tp, torch.from_numpy(x), cfg,
+                                   mode="prefill")
+        rng = np.random.default_rng(9)
+        for _ in range(5):
+            xt = (rng.standard_normal((2, 1, cfg.d_model)) * 0.1
+                  ).astype(np.float32)
+            want, wstate = jax_ssm.apply_rglru(params, xt, jcfg,
+                                               mode="decode", state=wstate)
+            got, state = ssm.apply_rglru(tp, torch.from_numpy(xt), cfg,
+                                         mode="decode", state=state)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-4, atol=1e-5)
+            np.testing.assert_allclose(state.h.numpy(), np.asarray(wstate.h),
+                                       atol=2e-6)
+            np.testing.assert_allclose(state.conv.numpy(),
+                                       np.asarray(wstate.conv), atol=2e-6)
+        with pytest.raises(ValueError, match="one token and a state"):
+            ssm.apply_rglru(tp, torch.from_numpy(x), cfg, mode="decode",
+                            state=state)
 
 
 # ---------------------------------------------------------------------------
