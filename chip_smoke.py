@@ -159,7 +159,26 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    events and push histories equal, the int8 launches a layer of each
    accepted push and partial walk) and a reduced recurrentgemma-2b
    ``zero`` run, on the card against the port on the CPU from one initial
-   state, to a stated tolerance.
+   state, to a stated tolerance;
+15. ``loop``: the training loop and the stacked-layer model at full width.
+   ``TrainLoop`` on granite-3-2b (AdamW, no remat, 3 steps of 2 x 1024):
+   losses bitwise ``build_train_step`` driven by hand, flash 40 a step and
+   no other kernel, seconds a step, tokens/s and peak against the
+   reckoning; ``accum_steps=2`` to ``ACCUM_RTOL``; the checkpoint round
+   trip at 2 layers of full width, bitwise.  Then the stacked granite-3-2b
+   step (``train_loss_scanned`` and its gradients) bitwise the unrolled
+   step with per-block remat, at remat off, per group and two-level
+   (``remat_sqrt=8``), flash 40 / 80 / 115, each peak against its
+   reckoning; and the stacked recurrentgemma-2b forward (8 groups of 3 + 2
+   remainder layers) bitwise ``forward``'s, flash (hd 256) and the scan
+   once a block;
+16. ``structure``: the dry runs on fake tensors, each a process of its own
+   with no card visible, all at once: ``launch.zero_dryrun`` on
+   granite-3-2b at 256 fake ranks (each strategy's recorded all-gathers /
+   reduce-scatters equal its plan's F / B, the operand bytes the FlatSpec
+   math, ``fm_*`` the ``--skip-lowering`` run's) and ``launch.dryrun`` of
+   grok-1-314b and llava-next-34b x train_4k on 16 x 16 (``[ok]``, the
+   per-device state bytes the sharding rules' reckoning).
 
 The line ``[time] phase wall seconds {...}`` gives each phase's seconds
 (``verify`` included) and the script's total.  The last lines are
@@ -299,6 +318,15 @@ SMOKE_CONFIGS = ("zero", "local", "ps", "dynamic", "dynamic_ps", "ps_async",
                  "ps_async_int8", "dynamic_ps_async", "fleet_async",
                  "pipeline")
 TOPK_FRACTION = 0.01
+LOOP_LR = 3e-4            # the runtimes' default AdamW rate
+ACCUM_RTOL = 1e-5         # accum_steps=2 regroups the mean; 1e-7 measured
+LOOP_CKPT_LAYERS = 2      # the round trip's one cut: 40 layers write ~30 GB
+SCANNED_REMAT_SQRT = 8    # granite-3-2b's 40 groups: 5 chunks of 8
+# per-device (params, AdamW state) bytes on 16 x 16 (stacked, bf16
+# weights, fp32 moments): the reference rules' reckoning
+STRUCTURE_STATE_BYTES = {"grok-1-314b": (2_466_743_040, 9_866_972_164),
+                         "llava-next-34b": (265_181_056, 1_060_724_228)}
+STRUCTURE_TIMEOUT_S = 600
 PS_SCHEMES = (("int8", ("compress_quantize", "compress_dequantize")),
               ("topk", ("compress_sparsify", "compress_densify")))
 PACK_SWEEP = ((512,), (512, 1024), (2048, 512, 512, 1024), (512,) * 7,
@@ -3855,6 +3883,446 @@ def phase_configs() -> None:
                        f"bitwise equal to dynacomm")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the training loop and the stacked-layer model at full width
+# ---------------------------------------------------------------------------
+
+
+def loop_pipe(cfg):
+    """The main path's data: ``SyntheticText`` batches of 2 x 1024, seed 0."""
+    from repro_torch.data import SyntheticText
+    return SyntheticText(cfg.vocab_size, MAIN["seq"], MAIN["batch"], seed=0)
+
+
+def stamped(pipe, stamps: list):
+    """``pipe``'s batches, the host time of each fetch appended to
+    ``stamps``: ``TrainLoop`` reads each loss to the host (a sync) before
+    it fetches the next batch, so consecutive stamps bound one step."""
+    for batch in pipe:
+        stamps.append(time.perf_counter())
+        yield batch
+
+
+def loop_run(cfg, accum: int = 1, steps: int = STEPS, **loop_args) -> dict:
+    """``steps`` steps of ``TrainLoop`` (AdamW at the runtime's default lr,
+    no remat, a log line a step) from seed 0 on the card: losses, the
+    kernels' launches, seconds a step, peak, and the final state."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainLoop
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(cfg=cfg, optimizer=adamw(LOOP_LR), accum_steps=accum,
+                     log_every=1, **loop_args)
+    stamps: list = []
+    reset_launch_counts()
+    params, opt, losses = loop.run(
+        torch.Generator(device="cuda").manual_seed(0),
+        stamped(loop_pipe(cfg), stamps), steps)
+    torch.cuda.synchronize()
+    return dict(losses=losses, counts=launch_counts(), params=params,
+                opt=opt, secs=[b - a for a, b in zip(stamps, stamps[1:])],
+                peak=torch.cuda.max_memory_allocated())
+
+
+def loop_by_hand(cfg) -> list:
+    """The same steps through ``build_train_step`` (the ``local``
+    runtime's step) driven by hand: init, batches and update as above."""
+    from repro_torch import tree
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import build_train_step
+    free_cuda()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32, "cuda")
+    leaves = [x.requires_grad_() for x in tree.leaves(params)]
+    opt = adamw(LOOP_LR)
+    state = opt.init(leaves)
+    step = build_train_step(cfg, opt, remat=False)
+    pipe, losses = loop_pipe(cfg), []
+    for i in range(STEPS):
+        batch = {k: v.cuda() for k, v in pipe.batch(i).items()}
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+    del params, state, leaves
+    return losses
+
+
+def flash_only(counts: dict, n: int) -> None:
+    """``counts`` hold ``n`` flash launches and no other kernel's."""
+    want = {name: (n if name == "flash_attention_fwd" else 0)
+            for name in counts}
+    if counts != want:
+        raise AssertionError(f"launches {counts} != {want}")
+
+
+def reckon_loop_peak(cfg) -> dict:
+    """The reckoning written before the first run: weights, gradients and
+    two AdamW moments in fp32 (4 copies), plus the activations autograd
+    keeps without remat (a block: its input, the norms' and projections'
+    outputs, q / k / v and the attention output, the MLP's up, gate and
+    product, about 2 x 1024 x (12 d + 4 d_ff) fp32; the logits' CE keeps
+    ~3 fp32 copies of B x T x vocab) and the plain attention backward's
+    transient (B, H, T, T) scores (a few fp32 copies of one block's)."""
+    from repro_torch.models import param_count
+    n_tok = MAIN["batch"] * MAIN["seq"]
+    weights = 4 * param_count(cfg)
+    block = 4 * n_tok * (12 * cfg.d_model + 4 * cfg.d_ff)
+    logits = 3 * 4 * n_tok * cfg.vocab_size
+    scores = 4 * 4 * MAIN["batch"] * cfg.num_heads * MAIN["seq"] ** 2
+    return dict(weights=4 * weights,
+                total=4 * weights + cfg.num_layers * block + logits + scores)
+
+
+def train_loop_on_the_card(smi: str) -> dict:
+    from repro_torch.configs import get_config
+    cfg = get_config(MAIN["arch"])
+    reckon = reckon_loop_peak(cfg)
+    say("loop", f"{cfg.name}: {cfg.num_layers} layers, d_model "
+                f"{cfg.d_model}, GQA {cfg.num_heads}/{cfg.num_kv_heads}, "
+                f"vocab {cfg.vocab_size}; TrainLoop, AdamW {LOOP_LR}, no "
+                f"remat, batch {MAIN['batch']} x {MAIN['seq']}; peak "
+                f"reckoned {reckon['total'] / 2**30:.2f} GiB (4 fp32 copies "
+                f"{reckon['weights'] / 2**30:.2f})")
+    run = loop_run(cfg)
+    flash_only(run["counts"], STEPS * cfg.num_layers)
+    by_hand = loop_by_hand(cfg)
+    if run["losses"] != by_hand:
+        raise AssertionError(f"TrainLoop losses {run['losses']} != "
+                             f"build_train_step's {by_hand}")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"non-finite losses {run['losses']}")
+    steady = sum(run["secs"][1:]) / len(run["secs"][1:])
+    tokens = MAIN["batch"] * MAIN["seq"]
+    say("loop", f"losses {run['losses']} == build_train_step's by hand "
+                f"(bitwise); launches {run['counts']}")
+    say("loop", f"step seconds {[round(s, 4) for s in run['secs']]}; "
+                f"steady {steady * 1e3:.1f} ms/step (steps 2-{STEPS}), "
+                f"{tokens / steady:.1f} tokens/s; peak "
+                f"{run['peak'] / 2**30:.2f} GiB against the reckoned "
+                f"{reckon['total'] / 2**30:.2f} GiB ({smi})")
+    losses = run["losses"]
+    del run
+    acc = loop_run(cfg, accum=2)
+    flash_only(acc["counts"], 2 * STEPS * cfg.num_layers)
+    gap = max(abs(a - b) / abs(b) for a, b in zip(acc["losses"], losses))
+    if gap > ACCUM_RTOL:
+        raise AssertionError(f"accum_steps=2 losses {acc['losses']} vs "
+                             f"{losses}: gap {gap:.2e} > {ACCUM_RTOL}")
+    say("loop", f"accum_steps=2: losses {acc['losses']}, largest relative "
+                f"gap {gap:.2e} (<= {ACCUM_RTOL}); launches "
+                f"{acc['counts']['flash_attention_fwd']} flash; peak "
+                f"{acc['peak'] / 2**30:.2f} GiB")
+    del acc
+    return dict(losses=losses, steady=steady,
+                flash=STEPS * cfg.num_layers)
+
+
+def loop_checkpoint_round_trip() -> None:
+    """``checkpoint_every=1`` at ``LOOP_CKPT_LAYERS`` layers of full width:
+    the file of the last step, loaded into the run's own template, holds
+    its parameters and optimizer state bit for bit."""
+    import tempfile
+    from repro_torch import tree
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.train.loop import opt_tree
+    cfg = dataclasses.replace(get_config(MAIN["arch"]),
+                              num_layers=LOOP_CKPT_LAYERS)
+    (ROOT / "build").mkdir(exist_ok=True)               # ignored by git
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "loop.npz")
+        run = loop_run(cfg, steps=2, checkpoint_path=path,
+                       checkpoint_every=1)
+        want = {"params": run["params"],
+                "opt": opt_tree(run["opt"], run["params"])}
+        size = Path(path).stat().st_size
+        loaded, step = load_checkpoint(path, want)
+    if step != 2:
+        raise AssertionError(f"checkpoint of step {step}, not 2")
+    leaves = tree.leaves(want)
+    for got, ref in zip(tree.leaves(loaded), leaves):
+        assert_bitwise(torch.from_numpy(got), ref.detach().cpu(),
+                       "a checkpoint leaf")
+    say("loop", f"checkpoint round trip at {LOOP_CKPT_LAYERS} layers of "
+                f"full width: step 2's {len(leaves)} leaves "
+                f"({size / 2**30:.2f} GiB on disk) bitwise")
+
+
+def reckon_scanned_peaks(cfg) -> dict:
+    """Reckoned before the first run: on top of the stacked weights and
+    the unrolled step's gradients kept for the comparison (2 fp32 copies),
+    each variant holds its gradients twice at the end (the groups' and
+    their stack: ``torch.unbind``'s backward) and its saved activations:
+    every block's (``reckon_loop_peak``) without remat, one (B, T, d)
+    input a group with remat, one a chunk of ``SCANNED_REMAT_SQRT`` groups
+    with the second level; plus one block recomputed, the logits' CE and
+    the attention backward's scores."""
+    from repro_torch.models import param_count
+    n_tok = MAIN["batch"] * MAIN["seq"]
+    w = 4 * param_count(cfg)
+    block = 4 * n_tok * (12 * cfg.d_model + 4 * cfg.d_ff)
+    carry = 4 * n_tok * cfg.d_model
+    rest = (3 * 4 * n_tok * cfg.vocab_size + block
+            + 4 * 4 * MAIN["batch"] * cfg.num_heads * MAIN["seq"] ** 2)
+    base = 2 * w + 2 * w + rest
+    return {"off": base + cfg.num_layers * block,
+            "remat": base + cfg.num_layers * carry,
+            f"remat_sqrt={SCANNED_REMAT_SQRT}":
+                base + cfg.num_layers // SCANNED_REMAT_SQRT * carry
+                + SCANNED_REMAT_SQRT * carry}
+
+
+def sqrt_remat_flash(groups: int, r: int) -> int:
+    """Flash launches of one two-level-remat step over ``groups`` groups of
+    one attention block: the forward, the chunks' recompute and the
+    groups' recompute.  A chunk's recompute stops once it has rebuilt
+    what the chunk saved, the input of its last group (non-reentrant
+    checkpoint's early stop), so it runs ``r - 1`` of its ``r`` groups."""
+    return groups + (groups - groups // r) + groups
+
+
+def scanned_on_the_card(smi: str) -> dict:
+    """Full-width granite-3-2b on the stacked layout: ``train_loss_scanned``
+    and its gradients (unstacked) bitwise ``train_loss`` with per-block
+    remat, at remat off, per group and two-level; flash launches exact."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params, model, scanned
+    cfg = get_config(MAIN["arch"])
+    free_cuda()
+    sp = scanned.stack_layer_params(cfg, init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), torch.float32,
+        "cuda"))
+    stacked = [x.requires_grad_() for x in tree.leaves(sp)]
+    # the per-layer view of the same storage (no copy)
+    unrolled = tree.tree_map(lambda x: x.detach().requires_grad_(),
+                             scanned.unstack_layer_params(cfg, sp))
+    batch = {k: v.cuda() for k, v in loop_pipe(cfg).batch(0).items()}
+    reckon = reckon_scanned_peaks(cfg)
+    say("loop", f"stacked {cfg.name}: {scanned.group_count(cfg)[0]} groups"
+                f" of {len(cfg.layer_pattern)}; peaks reckoned "
+                + ", ".join(f"{k} {v / 2**30:.2f} GiB"
+                            for k, v in reckon.items()))
+
+    def step(fn, leaves):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = fn()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        return (loss.detach(), grads, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(), launch_counts())
+
+    u_leaves = tree.leaves(unrolled)
+    u_loss, u_grads, u_secs, u_peak, u_counts = step(
+        lambda: model.train_loss(cfg, unrolled, batch, remat=True), u_leaves)
+    flash_only(u_counts, 2 * cfg.num_layers)
+    say("loop", f"unrolled, per-block remat: loss {u_loss.item():.6f}, "
+                f"{u_secs * 1e3:.1f} ms, peak {u_peak / 2**30:.2f} GiB, "
+                f"flash {u_counts['flash_attention_fwd']}")
+    out = {}
+    for name, kw, flash in (
+            ("off", dict(remat=False), cfg.num_layers),
+            ("remat", dict(remat=True), 2 * cfg.num_layers),
+            (f"remat_sqrt={SCANNED_REMAT_SQRT}",
+             dict(remat=True, remat_sqrt=SCANNED_REMAT_SQRT),
+             sqrt_remat_flash(cfg.num_layers, SCANNED_REMAT_SQRT))):
+        loss, grads, secs, peak, counts = step(
+            lambda: scanned.train_loss_scanned(cfg, sp, batch, **kw),
+            stacked)
+        flash_only(counts, flash)
+        assert_bitwise(loss, u_loss, f"scanned loss ({name})")
+        per_layer = tree.leaves(scanned.unstack_layer_params(
+            cfg, tree.unflatten(tree.structure(sp), list(grads))))
+        for got, want in zip(per_layer, u_grads):
+            assert_bitwise(got, want, f"a scanned gradient ({name})")
+        del grads, per_layer
+        say("loop", f"scanned, {name}: loss and {len(u_grads)} gradient "
+                    f"leaves bitwise the unrolled step's; {secs * 1e3:.1f} "
+                    f"ms; peak {peak / 2**30:.2f} GiB (reckoned "
+                    f"{reckon[name] / 2**30:.2f}); flash "
+                    f"{counts['flash_attention_fwd']} ({smi})")
+        out[name] = dict(secs=secs, peak=peak, flash=flash)
+    del sp, stacked, unrolled, u_grads, u_leaves
+    free_cuda()
+    return out
+
+
+def scanned_hybrid_forward() -> dict:
+    """recurrentgemma-2b at full width on the stacked layout (period 3: 8
+    groups + 2 remainder layers): one forward, logits and aux bitwise
+    ``forward``'s, the scan and flash (hd 256) launched once a block."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params, model, scanned
+    cfg = get_config(HYBRID["arch"])
+    free_cuda()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32, "cuda")
+    sp = scanned.stack_layer_params(cfg, params)
+    del params
+    unrolled = scanned.unstack_layer_params(cfg, sp)
+    batch = {k: v.cuda() for k, v in loop_pipe(cfg).batch(0).items()}
+    kinds = cfg.layer_kinds()
+    want = {"flash_attention_fwd": kinds.count("local_attn")
+            + kinds.count("global_attn"), "rglru_scan": kinds.count("rglru")}
+    runs = []
+    with torch.no_grad():
+        for fn in (lambda: scanned.forward_scanned(cfg, sp, batch,
+                                                   remat=False),
+                   lambda: model.forward(cfg, unrolled, batch)):
+            reset_launch_counts()
+            logits, _, aux = fn()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            if counts != want:
+                raise AssertionError(f"launches {counts} != {want}")
+            runs.append((logits, aux))
+    assert_bitwise(runs[0][0], runs[1][0], "scanned recurrentgemma logits")
+    assert_bitwise(runs[0][1], runs[1][1], "scanned recurrentgemma aux")
+    n_groups, rem = scanned.group_count(cfg)
+    say("loop", f"stacked {cfg.name}: {n_groups} groups of "
+                f"{len(cfg.layer_pattern)} + {rem} remainder layers; logits "
+                f"{tuple(runs[0][0].shape)} and aux bitwise forward's; "
+                f"launches {want} each")
+    del runs, sp, unrolled
+    free_cuda()
+    return want
+
+
+def phase_loop(smi: str) -> dict:
+    run = train_loop_on_the_card(smi)
+    loop_checkpoint_round_trip()
+    run["scanned"] = scanned_on_the_card(smi)
+    run["hybrid"] = scanned_hybrid_forward()
+    return run
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the structure checks on fake tensors (subprocesses, no card)
+# ---------------------------------------------------------------------------
+
+
+def zero_operand_bytes(cfg, world: int) -> tuple:
+    """(all-gather, reduce-scatter) operand bytes of one ZeRO step at
+    ``world`` ranks by the FlatSpec math: each layer's shard pulled once,
+    its padded buffer pushed once, in fp32."""
+    from repro_torch.dist.collectives import make_flat_spec
+    from repro_torch.models import model
+    specs = [make_flat_spec(t, world) for t in model.sched_layer_trees(
+        model.param_shapes(cfg))]
+    return (4 * sum(s.shard_size for s in specs),
+            4 * sum(s.padded for s in specs))
+
+
+def structure_runs(tmp: Path) -> dict:
+    """The dry runs, all started at once, each a process of its own on
+    the CPU with no card visible; waits for all and kills any left."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    from repro_torch.launch.zero_dryrun import STRATEGIES
+    # one process a strategy: each fake step takes ~30 s of one core
+    cmds = {f"zero-{s}": ["repro_torch.launch.zero_dryrun", "--arch",
+                          MAIN["arch"], "--strategies", s]
+            for s in STRATEGIES}
+    cmds["zero-costs"] = ["repro_torch.launch.zero_dryrun", "--arch",
+                          MAIN["arch"], "--skip-lowering"]
+    for arch in STRUCTURE_STATE_BYTES:
+        cmds[arch] = ["repro_torch.launch.dryrun", "--arch", arch,
+                      "--shape", "train_4k"]
+    procs = {}
+    try:
+        for name, args in cmds.items():
+            out = tmp / f"{name}.jsonl"
+            log = open(tmp / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", *args, "--out", str(out)],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
+                log, out)
+        for name, (proc, log, _) in procs.items():
+            proc.wait(timeout=STRUCTURE_TIMEOUT_S)
+            log.close()
+    finally:
+        for proc, log, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    results = {}
+    for name, (proc, _, out) in procs.items():
+        text = (tmp / f"{name}.log").read_text()
+        for line in text.splitlines():
+            say("structure", f"{name}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"{cmds[name]} exited {proc.returncode}")
+        results[name] = json.loads(out.read_text().splitlines()[-1])
+    return results
+
+
+def phase_structure() -> None:
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core import plan_from_decision, schedule
+    from repro_torch.launch.zero_dryrun import STRATEGIES, tpu_costs
+    from repro_torch.models import num_sched_layers
+    (ROOT / "build").mkdir(exist_ok=True)               # ignored by git
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        res = structure_runs(Path(tmp))
+    wall = time.perf_counter() - t0
+    cfg = get_config(MAIN["arch"])
+    costs_only = res["zero-costs"]
+    world = res["zero-dynacomm"]["fake_world"]
+    ag, rs = zero_operand_bytes(cfg, world)
+    costs = tpu_costs(MAIN["arch"], "train_4k", world)
+    for strat in STRATEGIES:
+        rec = res[f"zero-{strat}"]["strategies"][strat]
+        ref = costs_only["strategies"][strat]
+        plan = plan_from_decision(*schedule(costs, strat),
+                                  num_sched_layers(cfg))
+        checks = {
+            "all-gathers = F": rec["recorded_all_gathers"]
+            == rec["fwd_buckets"] == len(plan.forward),
+            "reduce-scatters = B": rec["recorded_reduce_scatters"]
+            == rec["bwd_buckets"] == len(plan.backward),
+            "all-gather bytes": rec["all_gather_bytes"] == ag,
+            "reduce-scatter bytes": rec["reduce_scatter_bytes"] == rs,
+            "fm and steady state": all(rec[k] == v for k, v in ref.items()),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"zero_dryrun {strat}: {bad} ({rec})")
+        say("structure", f"zero {world} fake ranks, {strat}: "
+                         f"{rec['recorded_all_gathers']} all-gathers / "
+                         f"{rec['recorded_reduce_scatters']} reduce-scatters "
+                         f"= plan; operand bytes {ag} / {rs} = FlatSpec; "
+                         f"peak live {rec['peak_live_bytes']} B; fm "
+                         f"{rec['fm_iteration_s']:.4f} s (TPU cost model)")
+    for arch, (params_b, opt_b) in STRUCTURE_STATE_BYTES.items():
+        rec = res[arch]
+        st = rec.get("state_bytes_per_device", {})
+        if rec["status"] != "ok" or (st.get("params"), st.get("opt")) != \
+                (params_b, opt_b):
+            raise AssertionError(f"dryrun {arch}: {rec.get('status')}, "
+                                 f"state {st} != {(params_b, opt_b)}")
+        say("structure", f"{arch} x train_4k x 16x16 on fake tensors: "
+                         f"per device params {st['params']} B, opt "
+                         f"{st['opt']} B = the rules' reckoning; activation "
+                         f"peak {rec['activation_peak_bytes']} B, step peak "
+                         f"{rec['step_peak_bytes']} B (a replica's "
+                         f"micro-batch {rec['micro_batch']}); flops/device "
+                         f"{rec['flops_per_device']:.4e}, useful "
+                         f"{rec['useful_flop_ratio']:.4f}, compute term "
+                         f"{rec['roofline']['compute_s']:.4f} s; fake step "
+                         f"{rec['fake_step_s']} s")
+    say("structure", f"{len(res)} dry runs side by side in {wall:.1f} s")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3894,6 +4362,8 @@ def main(argv=None) -> None:
     serve_records, serve_counts = timed("serve", phase_serve, smi)
     timed("verify", phase_verify, smi)
     timed("configs", phase_configs)
+    loop_run_ = timed("loop", phase_loop, smi)
+    timed("structure", phase_structure)
     say("time", f"phase wall seconds {walls}; "
                 f"{time.perf_counter() - start:.1f} s since the start")
     if torch.distributed.is_initialized():
@@ -3927,6 +4397,14 @@ def main(argv=None) -> None:
     # recurrentgemma-2b's (T = 2100), records of their own
     records.update(serve_records)
     counts.update(serve_counts)
+    # this slice's paths: TrainLoop's 3 steps, the stacked recurrentgemma
+    # forward (the stacked granite step's launches are asserted per
+    # variant in phase loop)
+    records["flash_attention_fwd"]["loop_launches"] = loop_run_["flash"]
+    records["flash_attention_fwd@hd256"]["loop_launches"] = \
+        loop_run_["hybrid"]["flash_attention_fwd"]
+    records["rglru_scan"]["loop_launches"] = \
+        loop_run_["hybrid"]["rglru_scan"]
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

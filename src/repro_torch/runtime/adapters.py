@@ -211,12 +211,9 @@ class LocalRuntime(RuntimeAdapter):
     def _checkpoint_tree(self) -> Dict[str, Any]:
         """Params and optimizer state, the moments shaped like the params
         (the reference's checkpoint layout)."""
-        struct = tree.structure(self._params)
-        opt = self._opt_state
-        shaped = (lambda bufs: None if bufs is None
-                  else tree.unflatten(struct, list(bufs)))
+        from repro_torch.train.loop import opt_tree
         return {"params": self._params,
-                "opt": opt._replace(mu=shaped(opt.mu), nu=shaped(opt.nu))}
+                "opt": opt_tree(self._opt_state, self._params)}
 
     def save_state(self, path: str) -> None:
         self._save_tree(path, self._checkpoint_tree())

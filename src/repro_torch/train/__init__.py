@@ -1,3 +1,3 @@
-from repro_torch.train.loop import build_train_step
+from repro_torch.train.loop import TrainLoop, build_train_step
 
-__all__ = ["build_train_step"]
+__all__ = ["build_train_step", "TrainLoop"]

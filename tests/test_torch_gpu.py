@@ -977,3 +977,100 @@ def test_reduced_serving_on_the_card_matches_the_cpu(cuda, name, prompt,
     ``SERVE_CARD_CPU_ATOL`` at every step, tokens where clear of a tie."""
     gap = SMOKE.serve_card_against_cpu(name, prompt, total, cuda)
     assert gap <= SMOKE.SERVE_CARD_CPU_ATOL
+
+
+def _flash_only(n):
+    counts = launch_counts()
+    assert counts == {k: (n if k == "flash_attention_fwd" else 0)
+                      for k in counts}
+
+
+def test_stacked_step_on_the_card_equals_the_unrolled_step(cuda):
+    """Reduced granite-3-2b (4 layers, T = 64): ``train_loss_scanned`` and
+    its unstacked gradients bitwise the unrolled step with per-block remat
+    at remat off, per group and two-level (``remat_sqrt=2``); flash once a
+    block and once more a level of remat, less one a chunk: a chunk's
+    recompute stops at its last group's input (``chip_smoke.
+    sqrt_remat_flash``; phase ``loop`` at full width)."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticText
+    from repro_torch.models import init_params, model, scanned
+    cfg = get_config("granite-3-2b").reduced(num_layers=4)
+    sp = scanned.stack_layer_params(cfg, init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), torch.float32,
+        cuda))
+    stacked = [x.requires_grad_() for x in tree.leaves(sp)]
+    unrolled = tree.tree_map(lambda x: x.detach().requires_grad_(),
+                             scanned.unstack_layer_params(cfg, sp))
+    batch = {k: v.to(cuda) for k, v in
+             SyntheticText(cfg.vocab_size, 64, 2, seed=0).batch(0).items()}
+    reset_launch_counts()
+    u_loss = model.train_loss(cfg, unrolled, batch, remat=True)
+    u_grads = torch.autograd.grad(u_loss, tree.leaves(unrolled))
+    _flash_only(8)
+    for kw, flash in ((dict(remat=False), 4), (dict(remat=True), 8),
+                      (dict(remat=True, remat_sqrt=2),
+                       SMOKE.sqrt_remat_flash(4, 2))):
+        reset_launch_counts()
+        loss = scanned.train_loss_scanned(cfg, sp, batch, **kw)
+        grads = torch.autograd.grad(loss, stacked)
+        _flash_only(flash)
+        assert torch.equal(loss.view(torch.int32), u_loss.view(torch.int32))
+        per_layer = tree.leaves(scanned.unstack_layer_params(
+            cfg, tree.unflatten(tree.structure(sp), list(grads))))
+        for a, b in zip(per_layer, u_grads):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), kw
+
+
+def test_stacked_hybrid_forward_on_the_card_is_bitwise(cuda):
+    """Reduced recurrentgemma-2b (4 layers: one group of 3 and a remainder
+    RG-LRU block) on the stacked layout: logits bitwise ``forward``'s,
+    through the scan kernel and flash at hd 64."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticText
+    from repro_torch.models import init_params, model, scanned
+    cfg = get_config("recurrentgemma-2b").reduced(num_layers=4)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         torch.float32, cuda)
+    sp = scanned.stack_layer_params(cfg, params)
+    batch = {k: v.to(cuda) for k, v in
+             SyntheticText(cfg.vocab_size, 96, 2, seed=0).batch(0).items()}
+    with torch.no_grad():
+        reset_launch_counts()
+        got, _, _ = scanned.forward_scanned(cfg, sp, batch, remat=False)
+        counts = launch_counts()
+        want, _, _ = model.forward(cfg, params, batch)
+    assert (counts["rglru_scan"], counts["flash_attention_fwd"]) == (3, 1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_train_loop_on_the_card(cuda, capsys):
+    """``TrainLoop`` draws its weights on the generator's device (the
+    card) and its losses equal ``build_train_step`` driven by hand."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticText
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainLoop, build_train_step
+    cfg = get_config("granite-3-2b").reduced()
+    pipe = SyntheticText(cfg.vocab_size, 64, 2, seed=0)
+    reset_launch_counts()
+    params, _, losses = TrainLoop(cfg=cfg, optimizer=adamw(3e-4),
+                                  log_every=1).run(
+        torch.Generator(device=cuda).manual_seed(0), iter(pipe), 3)
+    _flash_only(3 * cfg.num_layers)
+    assert all(x.is_cuda for x in tree.leaves(params))
+    assert len(capsys.readouterr().out.splitlines()) == 3
+    p = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                    torch.float32, cuda)
+    leaves = [x.requires_grad_() for x in tree.leaves(p)]
+    opt = adamw(3e-4)
+    state, step = opt.init(leaves), build_train_step(cfg, opt, remat=False)
+    by_hand = []
+    for i in range(3):
+        p, state, loss = step(p, state, {k: v.to(cuda) for k, v in
+                                         pipe.batch(i).items()})
+        by_hand.append(float(loss))
+    assert losses == by_hand

@@ -76,7 +76,11 @@ def test_importing_the_entry_points_loads_no_jax_or_reference():
             "repro_torch.models.cnn, repro_torch.data, "
             "repro_torch.pipeline, repro_torch.pipeline.trainer, "
             "repro_torch.analysis, repro_torch.analysis.cli, "
-            "repro_torch.analysis.runtime_verify; "
+            "repro_torch.analysis.runtime_verify, repro_torch.train, "
+            "repro_torch.models.scanned, repro_torch.dist.sharding, "
+            "repro_torch.launch.specs, repro_torch.launch.mesh, "
+            "repro_torch.launch.fake, repro_torch.launch.zero_dryrun, "
+            "repro_torch.launch.dryrun; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -95,3 +99,32 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _docstrings(mod):
+    """The docstring nodes of a module and of its classes and functions."""
+    out = set()
+    for node in ast.walk(mod):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and \
+                isinstance(node.body[0].value, ast.Constant):
+            out.add(id(node.body[0].value))
+    return out
+
+
+def test_no_port_module_names_an_xla_flag():
+    """The reference's dry runs forge devices through ``XLA_FLAGS``; the
+    port's run on fake tensors and must neither set nor read it: no
+    string in the port's code (docstrings aside) names it."""
+    found = []
+    for path in _sources():
+        with open(path) as fh:
+            mod = ast.parse(fh.read(), path)
+        docs = _docstrings(mod)
+        for node in ast.walk(mod):
+            if isinstance(node, ast.Constant) and \
+                    isinstance(node.value, str) and \
+                    "XLA_FLAGS" in node.value and id(node) not in docs:
+                found.append((path, node.lineno))
+    assert not found
