@@ -178,7 +178,29 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    reduce-scatters equal its plan's F / B, the operand bytes the FlatSpec
    math, ``fm_*`` the ``--skip-lowering`` run's) and ``launch.dryrun`` of
    grok-1-314b and llava-next-34b x train_4k on 16 x 16 (``[ok]``, the
-   per-device state bytes the sharding rules' reckoning).
+   per-device state bytes the sharding rules' reckoning);
+17. ``examples``: the nine ``examples/torch_<name>.py`` scripts in this
+   process (``runpy``, no ``--device``: on the card).  Flash against its
+   plain version at their shapes (hd 128 at 4 heads; reduced gemma2-2b's
+   hd 64, window 64, softcap 50); each at the reference's defaults, its
+   text (masked: clock figures, losses, sampled ids) equal to the
+   reference's (``tests/fixtures/examples``) and its launches equal to its
+   runtimes' plans (flash an attention block in a served prefill, none in
+   decode, none outside), every loss finite; each at its tests' small
+   flags on the card, drawing on the host, and with ``--device cpu``: the
+   masked texts equal, the losses and served logits the CPU's
+   (``tests/helpers/torch_examples.py`` runs and masks them); full-width
+   recurrentgemma-2b cut to 9 layers, 5 steps on the card from the port's
+   seed-3 host draw against the CPU's losses from that draw (a rise at
+   step 5, as the reference's from the same draw); then gemma2-2b, the
+   serving example's model, at full width: flash against its plain
+   version at its prefill (2, 8/4, 4200, 256), causal, softcap 50, at
+   window 4096 and 0, timed beside the plain version and ``flex_attention``
+   compiled with a softcap score_mod (the record
+   ``flash_attention_fwd@gemma2``), and 2 x 4200 -> 32 served greedily
+   through the launcher past its 4096-token window (flash 26 in the
+   prefill, none in decode, the KV caches 1,773,797,376 B, decode logits
+   within 5e-4 of one full forward).
 
 The line ``[time] phase wall seconds {...}`` gives each phase's seconds
 (``verify`` included) and the script's total.  The last lines are
@@ -314,6 +336,26 @@ SERVE_XLSTM_RTOL = 1e-3
 # runs the kernels, the CPU's the plain versions, one step the same ops)
 SERVE_CARD_CPU_ATOL = 1e-4
 SERVE_CARD_CPU = (("recurrentgemma-2b", 70, 100), ("granite-3-2b", 24, 40))
+# gemma2-2b served at full width past its 4096-token window: (requests,
+# prompt, new tokens), greedy, through repro_torch.launch.serve
+GEMMA2 = ("gemma2-2b", 2, 4200, 32)
+GEMMA2_KV_BYTES = 1_773_797_376    # 13 x 4232 + 13 x 4096 slots x 16,384 B
+# recurrentgemma-2b at full width cut to its first L layers (the pattern's
+# order: 3 is (rglru, rglru, local_attn), 9 three of those), phase hybrid's
+# config, from the port's draw of seed s on the host: (L, s) -> the port's
+# CPU run from the same draw (its SHA-256 and losses, by
+# tests/helpers/hybrid_loss_check.py --full-width --layers L --seed s,
+# which also runs the reference from it; the CPU takes ~41 s a step at 3
+# layers, too long for this script), held to CARD_CPU_RTOL.  (9, 3) rises
+# at step 5, in both packages from this draw, 3.65e-7 apart (ROADMAP queue
+# 3).  The hash pins torch's CPU generator (torch 2.11 and 2.13 draw the
+# same state): a torch that draws another fails the hash check, and the
+# losses are then taken again.  Each host draw takes
+# ~30 s, so one is run here
+HYBRID_DRAWS = {
+    (9, 3): ("d2681934658fc901c2e3cdfc4fb557b0000e9b2372dd35e5eaaf2b81da988852",
+             (23.029619216918945, 12.874444961547852, 9.195002555847168,
+              7.839303016662598, 8.445832252502441))}
 SMOKE_CONFIGS = ("zero", "local", "ps", "dynamic", "dynamic_ps", "ps_async",
                  "ps_async_int8", "dynamic_ps_async", "fleet_async",
                  "pipeline")
@@ -375,6 +417,8 @@ REPLACES = {
     "flash_attention_fwd@serve":
         "src/repro/kernels/flash_attention/flash_attention.py:111",
     "rglru_scan@serve": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
+    "flash_attention_fwd@gemma2":
+        "src/repro/kernels/flash_attention/flash_attention.py:111",
 }
 SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
@@ -393,7 +437,9 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "rglru_scan_bwd": "src/repro_torch/csrc/rglru_scan.cu",
            "flash_attention_fwd@serve":
                "src/repro_torch/csrc/flash_attention.cu",
-           "rglru_scan@serve": "src/repro_torch/csrc/rglru_scan.cu"}
+           "rglru_scan@serve": "src/repro_torch/csrc/rglru_scan.cu",
+           "flash_attention_fwd@gemma2":
+               "src/repro_torch/csrc/flash_attention.cu"}
 PORT_KERNELS = ("copy_chunks_kernel", "flash_fwd_kernel",    # csrc/*.cu
                 "quantize_pack_kernel", "dequantize_unpack_kernel",
                 "sparsify_kernel", "densify_kernel", "rglru_scan_kernel")
@@ -3222,7 +3268,8 @@ def scan_at_the_prefill_shape(dev) -> dict:
     return rec
 
 
-def serve_through_the_launcher(name: str, smi: str) -> tuple:
+def serve_through_the_launcher(name: str, smi: str, shape=None,
+                               phase: str = "serve") -> tuple:
     """``repro_torch.launch.serve`` on ``name`` at full width, greedy: the
     kernels' launches counted after the prefill and after the decode (none
     may come from the decode), the cache bytes against the reckoning,
@@ -3231,12 +3278,13 @@ def serve_through_the_launcher(name: str, smi: str) -> tuple:
     every decoded position's logits within the stated bound, and its
     greedy token wherever its top-2 margin exceeds twice that bound (MoE at
     capacity factor E / k: no token can drop).  Returns the prefill's
-    launches and the run."""
+    launches and the run.  ``shape`` = (requests, prompt, tokens) is
+    ``SERVE[name]``'s unless given; ``phase`` tags the lines."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model
     from repro_torch.serve import batched_generate
-    b, p, k = SERVE[name]
+    b, p, k = shape or SERVE[name]
     logits, counts = [], {}
 
     def on_step(i, step_logits, caches):
@@ -3266,16 +3314,16 @@ def serve_through_the_launcher(name: str, smi: str) -> tuple:
         raise AssertionError(f"{name}: caches {run['cache_bytes']} B "
                              f"against the reckoning {reckon}")
     peak = run["peak_bytes"] / 2**30
-    say("serve", f"{name} through the launcher ({b} x {p} -> {k} tokens, "
-                 f"greedy): prefill {run['prefill_ms']:.1f} ms, decode "
-                 f"{run['decode_ms_steady']:.2f} ms a token steady "
-                 f"({run['decode_ms']:.2f} with the first), "
-                 f"{run['tokens_per_s']:.1f} tokens/s ({b * k} tokens in "
-                 f"{run['seconds']:.3f} s), peak {peak:.2f} GiB; caches "
-                 f"{run['cache_bytes']:,} B = the reckoning (KV "
-                 f"{reckon['kv']:,}, states {reckon['state']:,}, pos "
-                 f"{reckon['pos']}); prefill launches {prefill_launches}, "
-                 f"none in decode; {smi}")
+    say(phase, f"{name} through the launcher ({b} x {p} -> {k} tokens, "
+               f"greedy): prefill {run['prefill_ms']:.1f} ms, decode "
+               f"{run['decode_ms_steady']:.2f} ms a token steady "
+               f"({run['decode_ms']:.2f} with the first), "
+               f"{run['tokens_per_s']:.1f} tokens/s ({b * k} tokens in "
+               f"{run['seconds']:.3f} s), peak {peak:.2f} GiB; caches "
+               f"{run['cache_bytes']:,} B = the reckoning (KV "
+               f"{reckon['kv']:,}, states {reckon['state']:,}, pos "
+               f"{reckon['pos']}); prefill launches {prefill_launches}, "
+               f"none in decode; {smi}")
 
     check, tokens = cfg, run["tokens"]
     if cfg.is_moe:
@@ -3289,10 +3337,10 @@ def serve_through_the_launcher(name: str, smi: str) -> tuple:
             check, run["params"], run["prompts"], max_new_tokens=k,
             on_step=lambda i, lg, c: logits.append(lg[:, -1].float()
                                                    .clone()))
-        say("serve", f"{name} served again at capacity factor "
-                     f"{check.capacity_factor:g} for the check: "
-                     f"{int((tokens == run['tokens']).sum())} of {b * k} "
-                     f"tokens equal the timed run's")
+        say(phase, f"{name} served again at capacity factor "
+                   f"{check.capacity_factor:g} for the check: "
+                   f"{int((tokens == run['tokens']).sum())} of {b * k} "
+                   f"tokens equal the timed run's")
     seq = torch.cat([run["prompts"], tokens], dim=1)
     with torch.inference_mode():
         full, _, _ = model.forward(check, run["params"], {"tokens": seq})
@@ -3310,17 +3358,17 @@ def serve_through_the_launcher(name: str, smi: str) -> tuple:
                              f"worst gap {gap:.3g} (bound {bound:.3g}); "
                              f"tokens equal {int(same[clear].sum())} of "
                              f"{int(clear.sum())} clear")
-    say("serve", f"{name} full-forward check over {p + k} positions"
-                 f"{' (capacity factor E/k)' if cfg.is_moe else ''}: decode "
-                 f"logits within {gap:.3g} (bound {bound:.3g}), greedy tokens "
-                 f"equal at {int(clear.sum())} of {b * k} positions clear of "
-                 f"a tie")
+    say(phase, f"{name} full-forward check over {p + k} positions"
+               f"{' (capacity factor E/k)' if cfg.is_moe else ''}: decode "
+               f"logits within {gap:.3g} (bound {bound:.3g}), greedy tokens "
+               f"equal at {int(clear.sum())} of {b * k} positions clear of "
+               f"a tie")
     del full, got, logits, tokens
-    decode_trace(run)
+    decode_trace(run, phase=phase)
     return prefill_launches, run
 
 
-def decode_trace(run, steps: int = 3) -> None:
+def decode_trace(run, steps: int = 3, phase: str = "serve") -> None:
     """``steps`` decode steps of the served model under ``torch.profiler``
     (after a fresh prefill and one untraced step): kernels a step, device
     busy ms a step against the served run's steady decode ms (the idle
@@ -3346,11 +3394,11 @@ def decode_trace(run, steps: int = 3) -> None:
     rows.sort(key=lambda e: -e.self_device_time_total)
     top = "; ".join(f"{e.self_device_time_total / 1e3 / steps:.2f} ms "
                     f"{e.count // steps}x {e.key[:40]}" for e in rows[:5])
-    say("serve", f"{cfg.name} decode traced ({steps} steps): {launches:.0f} "
-                 f"kernels a step, device busy {busy:.2f} ms a step = "
-                 f"{100 * busy / steady:.1f}% of the served steady "
-                 f"{steady:.2f} ms (idle {100 * max(0.0, 1 - busy / steady):.1f}"
-                 f"%); largest: {top}")
+    say(phase, f"{cfg.name} decode traced ({steps} steps): {launches:.0f} "
+               f"kernels a step, device busy {busy:.2f} ms a step = "
+               f"{100 * busy / steady:.1f}% of the served steady "
+               f"{steady:.2f} ms (idle {100 * max(0.0, 1 - busy / steady):.1f}"
+               f"%); largest: {top}")
 
 
 def slstm_prefill_share(run) -> None:
@@ -4323,6 +4371,522 @@ def phase_structure() -> None:
     say("structure", f"{len(res)} dry runs side by side in {wall:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the examples on the card, and gemma2-2b served at full width
+# ---------------------------------------------------------------------------
+
+
+def examples_support():
+    """``tests/helpers/torch_examples.py``, shared with the examples' tests:
+    the examples' runner, their text mask, the reference's texts at the
+    defaults and the host draws of the card / CPU twins."""
+    import importlib.util
+    if "torch_examples" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "torch_examples", ROOT / "tests" / "helpers" / "torch_examples.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules["torch_examples"] = module
+    return sys.modules["torch_examples"]
+
+
+def computations(rt) -> int:
+    """Gradient computations an async runtime's loop has started (0 for a
+    synchronous runtime or before the first push)."""
+    loop = getattr(rt.trainer, "trainer", rt.trainer)
+    state = getattr(loop, "_loop", None)
+    return sum(state.attempts.values()) if state is not None else 0
+
+
+def count_gap(after: dict, before: dict) -> dict:
+    return {k: n - before.get(k, 0) for k, n in after.items()}
+
+
+class ExampleRecorder:
+    """While an example runs: each runtime ``build_runtime`` makes, with
+    the losses, launches and gradient computations of each of its ``fit``
+    calls, and each ``batched_generate``'s last-position prefill logits and
+    launches in its prefill and in all.  The examples import both names
+    when they run, so patching the modules' attributes reaches them."""
+
+    def __init__(self):
+        self.fits, self.generates = [], []
+
+    def __enter__(self):
+        import repro_torch.runtime as runtime
+        from repro_torch.kernels import launch_counts
+        from repro_torch.serve import decode
+        build, generate = self._saved = (runtime.build_runtime,
+                                         decode.batched_generate)
+
+        def recorded_build(*a, **k):
+            rt = build(*a, **k)
+            fit = rt.fit
+
+            def recorded_fit(steps, **kw):
+                before, made = launch_counts(), computations(rt)
+                out = fit(steps, **kw)
+                self.fits.append(dict(
+                    rt=rt, units=len(out), losses=list(out),
+                    counts=count_gap(launch_counts(), before),
+                    computations=computations(rt) - made))
+                return out
+            rt.fit = recorded_fit
+            return rt
+
+        def recorded_generate(cfg, *a, on_step=None, **k):
+            before, prefill, first = launch_counts(), {}, []
+
+            def hook(i, logits, caches):
+                if i == 0:
+                    prefill.update(launch_counts())
+                    first.append(logits[:, -1].float().cpu())
+                if on_step is not None:
+                    on_step(i, logits, caches)
+            out = generate(cfg, *a, on_step=hook, **k)
+            self.generates.append(dict(
+                cfg=cfg, logits=first[0], prefill=count_gap(prefill, before),
+                counts=count_gap(launch_counts(), before)))
+            return out
+        runtime.build_runtime = recorded_build
+        decode.batched_generate = recorded_generate
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.runtime as runtime
+        from repro_torch.serve import decode
+        runtime.build_runtime, decode.batched_generate = self._saved
+
+
+def attention_blocks(arch) -> int:
+    return sum(k in ("global_attn", "local_attn") for k in arch.layer_kinds())
+
+
+def launches_of_fits(fits) -> dict:
+    """What an example's ``fit`` calls should launch, from each runtime's
+    own plans: ``expected_launches`` a synchronous step, the plan sequence
+    of the re-planning runtimes (``launches_of_plans`` over their events),
+    3 flash a block and micro-batch a pipeline step, and 2 flash a block a
+    gradient computation of the async runtimes."""
+    total: dict = {}
+    runtimes = {id(f["rt"]): f["rt"] for f in fits}
+    for key, rt in runtimes.items():
+        units = sum(f["units"] for f in fits if id(f["rt"]) == key)
+        made = sum(f["computations"] for f in fits if id(f["rt"]) == key)
+        name, arch = rt.config.runtime, rt.arch
+        if name in ("zero", "ps"):
+            want = expected_launches(rt.plan, arch, (), units)
+        elif name in ("dynamic", "dynamic-ps"):
+            every = rt.config.schedule.reschedule_every
+            want = launches_of_plans(
+                [(e.plan, min(every, units - e.epoch * every))
+                 for e in rt.events], arch)
+        elif name == "pipeline":
+            want = {"flash_attention_fwd": 3 * attention_blocks(arch)
+                    * rt.trainer.num_microbatches * units}
+        else:
+            want = {"flash_attention_fwd": 2 * attention_blocks(arch) * made}
+        for k, n in want.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def check_example_launches(name: str, counts: dict, rec) -> str:
+    """The example's launches: its fits' against ``launches_of_fits``, each
+    served prefill one flash an attention block and its decode none, and
+    nothing launched outside those (the smoke CNN's pushes launch no
+    kernel of csrc/).  Returns a summary."""
+    fitted: dict = {}
+    for f in rec.fits:
+        for k, n in f["counts"].items():
+            fitted[k] = fitted.get(k, 0) + n
+    want = {k: 0 for k in counts}
+    want.update(launches_of_fits(rec.fits))
+    if {k: fitted.get(k, 0) for k in counts} != want:
+        raise AssertionError(f"{name}: its runtimes launched {fitted}, "
+                             f"their plans ask {want}")
+    served = {k: 0 for k in counts}
+    for g in rec.generates:
+        attn = attention_blocks(g["cfg"])
+        if g["prefill"]["flash_attention_fwd"] != attn or \
+                g["counts"] != g["prefill"] or \
+                any(n for k, n in g["prefill"].items()
+                    if k != "flash_attention_fwd"):
+            raise AssertionError(f"{name}: a prefill launched "
+                                 f"{g['prefill']}, the whole generate "
+                                 f"{g['counts']}; want flash {attn} in the "
+                                 f"prefill and nothing in decode")
+        served["flash_attention_fwd"] += attn
+    outside = {k: n - want[k] - served[k] for k, n in counts.items()}
+    if any(outside.values()):
+        raise AssertionError(f"{name}: launches {counts} outside its runtimes"
+                             f" and prefills: {outside}")
+    runs = [f"{rt.config.runtime} x "
+            f"{sum(f['units'] for f in rec.fits if f['rt'] is rt)}"
+            for rt in {id(f["rt"]): f["rt"] for f in rec.fits}.values()]
+    return (f"launches {dict((k, n) for k, n in counts.items() if n)} == "
+            f"the plans of {runs or 'no runtime'}"
+            + (f" + {len(rec.generates)} prefill(s), none in decode"
+               if rec.generates else ""))
+
+
+def finite_example_losses(name: str, text: str, rec) -> None:
+    """Every loss the example printed (the mask hides finite ones only, so
+    a NaN would already differ from the reference's text) and every loss
+    its ``fit`` calls returned is finite."""
+    ex = examples_support()
+    returned = [x for f in rec.fits for x in f["losses"]]
+    printed = [float(x) for x in ex.printed_losses(text)]
+    if not all(math.isfinite(x) for x in (*returned, *printed)) or \
+            re.search(r"(?i)\b(nan|inf|infinity)\b", text):
+        raise AssertionError(f"torch_{name}.py: losses {returned} returned, "
+                             f"{printed} printed: not all finite")
+
+
+def examples_at_their_defaults() -> dict:
+    """Each example in this process at the reference's defaults with no
+    ``--device`` (so on the card), its text printed: masked, it must equal
+    the reference's at its defaults (``EXAMPLE_TEXTS``); its losses must
+    be finite and its launches are held against its plans.  Returns each
+    example's seconds."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    ex = examples_support()
+    secs = {}
+    for name in ex.EXAMPLES:
+        drop_group()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with ExampleRecorder() as rec:
+            text = ex.run_example(ex.example_path(name))
+        torch.cuda.synchronize()
+        secs[name] = round(time.perf_counter() - t0, 1)
+        counts = launch_counts()
+        print(f"[examples] torch_{name}.py ({secs[name]} s):")
+        print("".join(f"    {line}\n" for line in text.splitlines()),
+              end="", flush=True)
+        want = (ex.EXAMPLE_TEXTS / f"{name}.txt").read_text().splitlines()
+        got = ex.mask_example_text(text).splitlines()
+        if got != want:
+            diff = [(a, b) for a, b in zip(got, want) if a != b]
+            raise AssertionError(f"torch_{name}.py at its defaults: "
+                                 f"{len(got)} lines against the reference's "
+                                 f"{len(want)}, masked; first differences "
+                                 f"{diff[:3]}")
+        finite_example_losses(name, text, rec)
+        launched = check_example_launches(name, counts, rec)
+        say("examples", f"torch_{name}.py: the reference's text, masked; "
+                        f"{sum(len(f['losses']) for f in rec.fits)} losses "
+                        f"returned and {len(ex.printed_losses(text))} printed,"
+                        f" finite; {launched}")
+        del rec
+        free_cuda()
+    drop_group()
+    return secs
+
+
+def example_twin(name: str) -> dict:
+    """``examples/torch_<name>.py`` at its tests' small flags on the card
+    and with ``--device cpu``, the card's run drawing its weights and
+    samples on the host (``host_draws``), so both start from one state:
+    the same text once masked; its printed losses
+    the CPU's to CARD_CPU_RTOL and one unit of their last digit; each
+    ``fit``'s losses the CPU's to CARD_CPU_RTOL; each served prefill's
+    last logits within SERVE_CARD_CPU_ATOL of the CPU's; all finite.
+    Returns the card run's launches and the worst gaps."""
+    import contextlib
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    ex = examples_support()
+    argv = ex.EXAMPLES[name]
+    runs = []
+    for extra in ((), ("--device", "cpu")):
+        drop_group()
+        reset_launch_counts()
+        draws = contextlib.nullcontext() if extra else ex.host_draws()
+        with ExampleRecorder() as rec, draws:
+            text = ex.run_example(ex.example_path(name), (*argv, *extra))
+        finite_example_losses(name, text, rec)
+        runs.append((text, rec, launch_counts()))
+    drop_group()
+    (card, crec, counts), (cpu, cpurec, _) = runs
+    where = f"torch_{name}.py {' '.join(argv)}"
+    if ex.mask_example_text(card) != ex.mask_example_text(cpu):
+        diff = [(a, b) for a, b in zip(ex.mask_example_text(card).splitlines(),
+                                       ex.mask_example_text(cpu).splitlines())
+                if a != b]
+        raise AssertionError(f"{where}: the card's masked text differs from "
+                             f"the CPU's: {diff[:3]}")
+    printed = ex.printed_losses_agree(ex.printed_losses(card),
+                                      ex.printed_losses(cpu), CARD_CPU_RTOL)
+    if len(crec.fits) != len(cpurec.fits) or \
+            len(crec.generates) != len(cpurec.generates):
+        raise AssertionError(f"{where}: {len(crec.fits)} fits and "
+                             f"{len(crec.generates)} generates on the card, "
+                             f"{len(cpurec.fits)} and {len(cpurec.generates)}"
+                             f" on the CPU")
+    fits = max([rel_gap(a["losses"], b["losses"])
+                for a, b in zip(crec.fits, cpurec.fits)], default=0.0)
+    logits = max([(a["logits"] - b["logits"]).abs().max().item()
+                  for a, b in zip(crec.generates, cpurec.generates)],
+                 default=0.0)
+    if not (fits <= CARD_CPU_RTOL and logits <= SERVE_CARD_CPU_ATOL):
+        raise AssertionError(f"{where}: card against CPU from one state: "
+                             f"fit losses rel gap {fits:.3g} (rtol "
+                             f"{CARD_CPU_RTOL}), prefill logits {logits:.3g} "
+                             f"(atol {SERVE_CARD_CPU_ATOL})")
+    return dict(counts=counts, printed=printed, fits=fits, logits=logits,
+                losses=sum(len(f["losses"]) for f in crec.fits)
+                + len(ex.printed_losses(card)))
+
+
+def examples_card_against_cpu() -> None:
+    """``example_twin`` of each example."""
+    ex = examples_support()
+    gaps = {name: example_twin(name) for name in ex.EXAMPLES}
+    say("examples", f"the {len(gaps)} examples at their tests' small flags, "
+                    f"the card from the CPU's draws: masked text == the "
+                    f"CPU's; {sum(g['losses'] for g in gaps.values())} losses"
+                    f" compared, fit losses within "
+                    f"{max(g['fits'] for g in gaps.values()):.3g} (rtol "
+                    f"{CARD_CPU_RTOL}), printed ones within "
+                    f"{max(g['printed'] for g in gaps.values()):.3g} of their "
+                    f"bound (rtol and a unit of the last digit), served "
+                    f"prefill logits within "
+                    f"{max(g['logits'] for g in gaps.values()):.3g} (atol "
+                    f"{SERVE_CARD_CPU_ATOL})")
+
+
+# (b, h, hkv, t, hd, window, softcap): the examples' attention calls —
+# edge_training / bandwidth_drift (hd 128 at 4 heads), edge_ps,
+# dynamic_ps, edge_pipeline's micro-batch, elastic_fleet, serving's
+# prefill (reduced gemma2-2b: hd 64, window 64, softcap 50) and its window
+# biting past T = 64
+EXAMPLE_FLASH = ((8, 4, 4, 128, 128, 0, 0.0), (8, 4, 4, 32, 64, 0, 0.0),
+                 (4, 4, 4, 32, 64, 0, 0.0), (2, 4, 4, 64, 64, 0, 0.0),
+                 (2, 4, 4, 16, 64, 0, 0.0), (4, 4, 4, 32, 64, 64, 50.0),
+                 (4, 4, 4, 130, 64, 64, 50.0))
+
+
+def flash_at_the_examples(dev) -> None:
+    from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
+                                                         flash_attention)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    worst = 0.0
+    with torch.no_grad():
+        for b, h, hkv, t, hd, window, cap in EXAMPLE_FLASH:
+            q, k, v = _qkv(gen, dev, b, h, hkv, t, hd, torch.float32, True)
+            err = (flash_attention(q, k, v, True, window, cap)
+                   - _ref_fwd(q, k, v, True, window, cap)).abs().max().item()
+            if not err <= F32_ATOL:
+                raise AssertionError(f"flash at an example's shape "
+                                     f"{(b, h, hkv, t, hd, window, cap)}: "
+                                     f"max abs err {err:.3g} > {F32_ATOL}")
+            worst = max(worst, err)
+    say("examples", f"flash_attention_fwd at the examples' "
+                    f"{len(EXAMPLE_FLASH)} shapes (hd 128 at 4 heads; reduced gemma2-2b's hd 64, "
+                    f"window 64, softcap 50) f32: max abs err {worst:.3g} "
+                    f"(atol {F32_ATOL})")
+
+
+class FlexSoftcap:
+    """One PyTorch call that computes flash's function with a logit softcap,
+    which SDPA does not take: ``flex_attention`` compiled, ``cap * tanh(s /
+    cap)`` its score_mod, the causal mask within a window its block mask,
+    GQA by ``enable_gqa``.  Timed beside flash, used nowhere in the port.
+    The window is a tensor the mask reads (T for none: causal then keeps
+    every key), so one compile serves each window ``at`` sets."""
+
+    def __init__(self, t: int, cap: float, dev):
+        from torch.nn.attention.flex_attention import flex_attention
+        self.t, self.dev = t, dev
+        self.span = span = torch.tensor(t, device=dev)
+
+        def softcap(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap)
+
+        def keep(b, h, qi, ki):
+            return (ki <= qi) & (ki > qi - span)
+        self.score_mod, self.mask_mod = softcap, keep
+        self.compiled = torch.compile(flex_attention, dynamic=False)
+        self.block = None
+
+    def at(self, window: int) -> None:
+        from torch.nn.attention.flex_attention import create_block_mask
+        self.span.fill_(window if window > 0 else self.t)
+        self.block = create_block_mask(self.mask_mod, None, None, self.t,
+                                       self.t, device=self.dev)
+
+    def __call__(self, q, k, v):
+        return self.compiled(q, k, v, score_mod=self.score_mod,
+                             block_mask=self.block, enable_gqa=True)
+
+
+def flash_at_gemma2(dev) -> dict:
+    """Flash at gemma2-2b's served prefill (2, 8/4, 4200, 256) f32, causal,
+    softcap 50, against its plain version at the local layers' window 4096
+    and the global layers' 0; timed at both beside the plain version and
+    the library's call (``FlexSoftcap``, held to the plain version too),
+    the local call the record ``flash_attention_fwd@gemma2``.  The bound
+    counts the (query, key) pairs each mask keeps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
+                                                         flash_attention)
+    cfg = get_config(GEMMA2[0])
+    b, t, cap = GEMMA2[1], GEMMA2[2], cfg.attn_logit_softcap
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(9)
+    times, library = {}, FlexSoftcap(t, cap, dev)
+    with torch.no_grad():
+        q, k, v = _qkv(gen, dev, b, h, hkv, t, hd, torch.float32, True)
+        for window in (cfg.sliding_window, 0):
+            err = (flash_attention(q, k, v, True, window, cap)
+                   - _ref_fwd(q, k, v, True, window, cap)).abs().max().item()
+            if not err <= F32_ATOL:
+                raise AssertionError(f"flash at gemma2-2b's prefill, window "
+                                     f"{window}: max abs err {err:.3g} > "
+                                     f"{F32_ATOL}")
+            flops = 4 * b * h * hd * live_pairs(t, True, window)
+            nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+            t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t0 = time.perf_counter()
+            library.at(window)
+            got = library(q, k, v)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            library_err = (got - _ref_fwd(q, k, v, True, window, cap)
+                           ).abs().max().item()
+            del got
+            if not library_err <= F32_ATOL:
+                raise AssertionError(f"flex_attention at gemma2-2b's prefill,"
+                                     f" window {window}: max abs err "
+                                     f"{library_err:.3g} > {F32_ATOL}")
+            warm_up(lambda: flash_attention(q, k, v, True, window, cap))
+            times[window] = dict(
+                max_abs_err=err, library_err=library_err, build_s=build_s,
+                library_ms=cuda_ms(lambda: library(q, k, v), 20),
+                ms=cuda_ms(lambda: flash_attention(q, k, v, True, window,
+                                                   cap), 20),
+                plain_ms=cuda_ms(lambda: _ref_fwd(q, k, v, True, window,
+                                                  cap), 5),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                pairs=live_pairs(t, True, window))
+            r = times[window]
+            r["tflops"] = flops / r["ms"] / 1e9
+            say("examples", f"flash_attention_fwd at gemma2-2b's prefill "
+                            f"(B={b}, H={h}/{hkv}, T={t}, hd={hd}, causal, "
+                            f"window {window}, softcap {cap:g}) f32: max abs "
+                            f"err {err:.3g} (atol {F32_ATOL}); {r['ms']:.4f} "
+                            f"ms = {r['tflops']:.2f} TFLOP/s = "
+                            f"{100 * r['bound_ms'] / r['ms']:.1f}% of its "
+                            f"bound {r['bound_ms']:.4f} by {r['bound_by']} "
+                            f"({r['pairs']:,} pairs); plain "
+                            f"{r['plain_ms']:.4f} ms; library (flex_attention"
+                            f" compiled, softcap score_mod; SDPA takes none) "
+                            f"{r['library_ms']:.4f} ms, max abs err "
+                            f"{r['library_err']:.3g}, built in "
+                            f"{r['build_s']:.1f} s")
+    local, full = times[cfg.sliding_window], times[0]
+    rec = {k: local[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "tflops")}
+    rec.update(max_abs_err=max(local["max_abs_err"], full["max_abs_err"]),
+               library_ms=local["library_ms"], global_ms=full["ms"],
+               global_plain_ms=full["plain_ms"],
+               global_bound_ms=full["bound_ms"],
+               global_library_ms=full["library_ms"])
+    return rec
+
+
+def hybrid_depths() -> None:
+    """Full-width recurrentgemma-2b cut to each depth of ``HYBRID_DRAWS``
+    on the card (phase hybrid's config: batch 2 x seq 1024, AdamW 3e-4),
+    from the port's draw of the entry's seed on the host: the draw's
+    SHA-256 and the losses held against the CPU's run from it.  Prints
+    where each trajectory rises."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import RuntimeConfig, build_runtime
+
+    def rises(losses):
+        return [i + 1 for i in range(1, len(losses))
+                if losses[i] > losses[i - 1]]
+    for (layers, seed), (want_sha, want) in HYBRID_DRAWS.items():
+        config = RuntimeConfig(**HYBRID, seed=seed)
+        arch = dataclasses.replace(get_config(HYBRID["arch"]),
+                                   num_layers=layers)
+        drop_group()
+        host = build_runtime(config, arch, device="cpu")
+        init = host._state["flat_params"]
+        sha = examples_support().flats_sha256(init)
+        del host
+        drop_group()
+        rt = build_runtime(config, arch)
+        rt._state = rt.trainer.state_from_flats(init)
+        del init
+        t0 = time.perf_counter()
+        losses = rt.fit(len(want))
+        secs = time.perf_counter() - t0
+        del rt
+        drop_group()
+        free_cuda()
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"hybrid at {layers} layers: {losses}")
+        if sha != want_sha:
+            raise AssertionError(f"hybrid at {layers} layers, seed {seed}: "
+                                 f"torch's CPU generator drew {sha}, not the "
+                                 f"state {want_sha} whose CPU losses "
+                                 f"HYBRID_DRAWS holds; take them again with "
+                                 f"tests/helpers/hybrid_loss_check.py")
+        gap = rel_gap(losses, want)
+        if not gap <= CARD_CPU_RTOL:
+            raise AssertionError(f"hybrid at {layers} layers, seed {seed}: "
+                                 f"losses {losses} against the CPU's {want} "
+                                 f"from one draw: rel gap {gap:.3g} > "
+                                 f"{CARD_CPU_RTOL}")
+        say("examples", f"recurrentgemma-2b, first {layers} layers "
+                        f"({arch.layer_kinds().count('rglru')} rglru, "
+                        f"{arch.layer_kinds().count('local_attn')} "
+                        f"local_attn) at full width, seed {seed}, "
+                        f"{len(losses)} zero steps on the card ({secs:.1f} "
+                        f"s): {losses}; rises at {rises(losses)}; host draw "
+                        f"sha256 {sha[:16]} == the CPU run's, whose losses "
+                        f"{list(want)} (rises at {rises(want)}) are within "
+                        f"{gap:.3g} (rtol {CARD_CPU_RTOL})")
+
+
+def phase_examples(smi: str) -> tuple:
+    """The nine examples on the card at their defaults and at their tests'
+    small flags against the CPU, flash at their shapes, then gemma2-2b
+    (the serving example's model) served at full width past its window
+    and flash at its prefill shape.  Returns the record
+    ``flash_attention_fwd@gemma2`` and its launches in the prefill."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    flash_at_the_examples(dev)
+    secs = examples_at_their_defaults()
+    say("examples", f"seconds an example at its defaults {secs}")
+    examples_card_against_cpu()
+    hybrid_depths()
+    record = flash_at_gemma2(dev)
+    free_cuda()
+    name, b, p, k = GEMMA2
+    launches, run = serve_through_the_launcher(name, smi, (b, p, k),
+                                               "examples")
+    reckon = reckon_cache_bytes(run["cfg"], b, p, k)
+    if reckon["kv"] != GEMMA2_KV_BYTES or launches["flash_attention_fwd"] \
+            != run["cfg"].num_layers:
+        raise AssertionError(f"gemma2-2b: KV {reckon['kv']} B (want "
+                             f"{GEMMA2_KV_BYTES}), prefill launches "
+                             f"{launches}")
+    del run
+    free_cuda()
+    say("examples", f"gemma2-2b: KV caches {GEMMA2_KV_BYTES:,} B == 13 x "
+                    f"{p + k} + 13 x 4096 slots x 16,384 B; flash "
+                    f"{launches['flash_attention_fwd']} in the prefill, none "
+                    f"in decode")
+    say("examples", f"phase {time.perf_counter() - t0:.1f} s; {smi}")
+    return record, launches["flash_attention_fwd"]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4364,6 +4928,7 @@ def main(argv=None) -> None:
     timed("configs", phase_configs)
     loop_run_ = timed("loop", phase_loop, smi)
     timed("structure", phase_structure)
+    gemma2_record, gemma2_launches = timed("examples", phase_examples, smi)
     say("time", f"phase wall seconds {walls}; "
                 f"{time.perf_counter() - start:.1f} s since the start")
     if torch.distributed.is_initialized():
@@ -4405,6 +4970,10 @@ def main(argv=None) -> None:
         loop_run_["hybrid"]["flash_attention_fwd"]
     records["rglru_scan"]["loop_launches"] = \
         loop_run_["hybrid"]["rglru_scan"]
+    # gemma2-2b's served prefill: flash with softcap 50 at hd 256, a
+    # record of its own
+    records["flash_attention_fwd@gemma2"] = gemma2_record
+    counts["flash_attention_fwd@gemma2"] = gemma2_launches
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

@@ -57,6 +57,22 @@ class _Marks:
         return [(m - self.start) * 1e3 for m in self.marks]
 
 
+def seeded_inputs(cfg, device: torch.device, requests: int,
+                  prompt_len: int, greedy: bool) -> tuple:
+    """(parameters, prompts, sampler) of a served run: parameters from a
+    generator on ``device`` seeded 0, int32 prompts from
+    ``numpy.random.default_rng(1)``, and a generator seeded 2 for the
+    Gumbel-max draw (``None`` when ``greedy``)."""
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (requests, prompt_len),
+        dtype=np.int32)).to(device)
+    sampler = None if greedy else \
+        torch.Generator(device=device).manual_seed(2)
+    return params, prompts, sampler
+
+
 def main(argv=None, on_step: Optional[StepHook] = None) -> Dict[str, Any]:
     """Run the launcher; ``on_step`` sees each step's logits and caches
     (``serve.decode.StepHook``).  Returns the run: its config, parameters,
@@ -83,13 +99,8 @@ def main(argv=None, on_step: Optional[StepHook] = None) -> Dict[str, Any]:
         raise SystemExit(f"--tokens must be >= 1, got {args.tokens}")
     device = resolve_device(None if args.device == "cuda" else args.device)
 
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device=device)
-    prompts = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (args.requests, args.prompt_len),
-        dtype=np.int32)).to(device)
-    sampler = None if args.greedy else \
-        torch.Generator(device=device).manual_seed(2)
+    params, prompts, sampler = seeded_inputs(
+        cfg, device, args.requests, args.prompt_len, args.greedy)
     seen: Dict[str, int] = {}
 
     def hook(i, logits, caches):

@@ -1074,3 +1074,50 @@ def test_train_loop_on_the_card(cuda, capsys):
                                          pipe.batch(i).items()})
         by_hand.append(float(loss))
     assert losses == by_hand
+
+
+# ---------------------------------------------------------------------------
+# the examples on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["serving", "edge_training"])
+def test_examples_on_the_card_print_the_cpu_text(cuda, name):
+    """``chip_smoke.example_twin``: ``examples/torch_<name>.py`` at its
+    tests' small flags with no ``--device`` (the card, drawing on the
+    host) and with ``--device cpu`` print the same text once masked, and
+    their losses and served prefill logits agree; the card's kernels
+    launched as the path asks — reduced gemma2-2b's prefill one flash a
+    block and its decode none; edge_training's 6 ZeRO steps under its
+    1 / 1 bucket plan a pack a bucket, an unpack a pull bucket and 2
+    flash a block a step."""
+    out = SMOKE.example_twin(name)
+    counts = out["counts"]
+    want = {k: 0 for k in counts}
+    if name == "serving":
+        want["flash_attention_fwd"] = 2
+        assert out["logits"] <= SMOKE.SERVE_CARD_CPU_ATOL
+    else:
+        want.update(bucket_pack=12, bucket_unpack=6, flash_attention_fwd=24)
+        assert out["losses"] >= 6 and out["fits"] <= SMOKE.CARD_CPU_RTOL
+    assert counts == want
+
+
+def test_host_draws_give_the_cpu_weights_on_the_card(cuda):
+    """``torch_examples.host_draws``: a runtime's weights and a sampler's
+    draws on the card are the CPU's, bitwise; outside it they are not."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    ex = SMOKE.examples_support()
+    cfg = get_config("gemma2-2b").reduced()
+
+    def draws(device):
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_params(cfg, gen, device=device)
+        leaves = [x.cpu() for x in torch.utils._pytree.tree_leaves(params)]
+        return leaves + [torch.rand((4, 7), generator=gen,
+                                    device=device).cpu()]
+    cpu = draws("cpu")
+    with ex.host_draws():
+        card = draws(cuda)
+    assert all(torch.equal(a, b) for a, b in zip(card, cpu))
+    assert not all(torch.equal(a, b) for a, b in zip(draws(cuda), cpu))

@@ -1,8 +1,11 @@
 """The port stands alone: no JAX and nothing of ``repro`` in it.
 
-``repro_torch`` and ``chip_smoke.py`` may import ``torch`` and numpy, but
-never ``jax`` and no module of the reference package (which ``repro_torch``
-itself matches as a prefix, so the checks compare module names exactly).
+``repro_torch``, ``chip_smoke.py`` (with the helper it imports,
+``tests/helpers/torch_examples.py``) and the port's examples
+(``examples/torch_*.py``) may import ``torch`` and numpy, but never
+``jax``, no module of the reference package (which ``repro_torch`` itself
+matches as a prefix, so the checks compare module names exactly) and
+nothing of ``benchmarks`` (which imports the reference).
 """
 
 import ast
@@ -12,11 +15,18 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _forbidden(module: str) -> bool:
-    top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return module.split(".")[0] in FORBIDDEN
+
+
+def _examples():
+    """The port's examples: ``examples/torch_<name>.py``."""
+    folder = os.path.join(ROOT, "examples")
+    return sorted(os.path.join(folder, f) for f in os.listdir(folder)
+                  if f.startswith("torch_") and f.endswith(".py"))
 
 
 def _sources():
@@ -25,6 +35,9 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # chip_smoke.py's phase examples runs and masks them with this helper
+    yield os.path.join(ROOT, "tests", "helpers", "torch_examples.py")
+    yield from _examples()
 
 
 def test_ast_scan_finds_no_jax_or_reference_import():
@@ -41,6 +54,36 @@ def test_ast_scan_finds_no_jax_or_reference_import():
             found += [(path, n) for n in names if _forbidden(n)]
     assert not found
     assert _forbidden("repro.core") and not _forbidden("repro_torch.core")
+    assert _forbidden("benchmarks.edge_setup")
+
+
+def test_every_reference_example_has_a_port_counterpart():
+    names = {os.path.basename(p)[len("torch_"):] for p in _examples()}
+    folder = os.path.join(ROOT, "examples")
+    reference = {f for f in os.listdir(folder)
+                 if f.endswith(".py") and not f.startswith("torch_")}
+    assert names == reference and len(names) == 9
+
+
+def test_the_examples_load_no_jax_reference_or_benchmarks():
+    """Each example imported by path (its module-level imports), and the
+    two host-only ones run: nothing forbidden lands in ``sys.modules``."""
+    code = ("import importlib.util, io, contextlib, sys\n"
+            "for path in sys.argv[1:]:\n"
+            "    spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "    mod = importlib.util.module_from_spec(spec)\n"
+            "    spec.loader.exec_module(mod)\n"
+            "    if path.endswith(('quickstart.py', 'cnn_study.py')):\n"
+            "        sys.argv = [path]\n"
+            "        with contextlib.redirect_stdout(io.StringIO()):\n"
+            "            mod.main()\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code, *_examples()],
+                         env=env, check=True, capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.stdout.strip() == "[]"
 
 
 def test_no_communication_function_is_imported_by_name():
