@@ -29,12 +29,14 @@ same plan sequence statically (``tests/test_torch_dynamic.py``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.buckets import plan_from_decision
 from repro_torch.core.costmodel import LayerCosts
@@ -200,6 +202,14 @@ class DynamicTrainer(ReplanMixin):
         drift = self._drift_pending
         self._drift_pending = False
         boundary = i % self.steps_per_epoch == 0 or drift
+        with (tracing.span("runtime.replan") if boundary
+              else contextlib.nullcontext()):
+            self._reschedule(i, state, batch, boundary, drift)
+
+    def _reschedule(self, i: int, state, batch, boundary: bool,
+                    drift: bool) -> None:
+        """The costs (a measurement where due), the decision and the
+        plan swap of step ``i``."""
         if boundary:
             self._costs = self.costs_for_epoch(i // self.steps_per_epoch,
                                                state, batch, remeasure=drift)

@@ -36,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch import tree
+from repro_torch import tracing, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.buckets import BucketPlan, flat_layer_order
 from repro_torch.dist.collectives import (FlatSpec,
@@ -296,11 +296,12 @@ class ZeroTrainer:
         # ---- pull phase: one all-gather per forward bucket --------------
         full: Dict[int, Any] = {}
         for bucket in self.plan.forward:
-            full.update(self._gather(shards, bucket))
+            with tracing.span("zero.pull"):
+                full.update(self._gather(shards, bucket))
 
         # ---- forward, saving each layer's input activation --------------
         acts: Dict[int, torch.Tensor] = {}
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span("zero.forward"):
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
             h = self._apply_embed(full[0], batch)
             for l in range(1, Ls - 1):
@@ -323,48 +324,53 @@ class ZeroTrainer:
         ct_h = None                # cotangent w.r.t. the current activation
         for bucket in self.plan.backward:
             if self.zero3 and any(0 < l < Ls - 1 for l in bucket):
-                full.update({l: p for l, p in
-                             self._gather(shards, bucket).items()
-                             if 0 < l < Ls - 1})
+                with tracing.span("zero.pull"):
+                    full.update({l: p for l, p in
+                                 self._gather(shards, bucket).items()
+                                 if 0 < l < Ls - 1})
             bucket_grads: Dict[int, Any] = {}
-            for l in bucket:       # descending layer order within the bucket
-                if l == Ls - 1:
-                    g_final, embed_from_head, ct_h = _vjp(
-                        lambda pf, pe, hh: self._apply_final(pf, pe, hh,
-                                                             batch),
-                        (full[l], full[0], acts.pop(l)), None)
-                    bucket_grads[l] = g_final
-                elif l == 0:
-                    (g_embed,) = _vjp(
-                        lambda pe: self._apply_embed(pe, batch),
-                        (full[0],), ct_h)
-                    bucket_grads[l] = tree.tree_map(torch.add, g_embed,
-                                                    embed_from_head)
-                    embed_from_head = ct_h = None
+            with tracing.span("zero.backward"):
+                for l in bucket:   # descending layer order within the bucket
+                    if l == Ls - 1:
+                        g_final, embed_from_head, ct_h = _vjp(
+                            lambda pf, pe, hh: self._apply_final(pf, pe, hh,
+                                                                 batch),
+                            (full[l], full[0], acts.pop(l)), None)
+                        bucket_grads[l] = g_final
+                    elif l == 0:
+                        (g_embed,) = _vjp(
+                            lambda pe: self._apply_embed(pe, batch),
+                            (full[0],), ct_h)
+                        bucket_grads[l] = tree.tree_map(torch.add, g_embed,
+                                                        embed_from_head)
+                        embed_from_head = ct_h = None
+                    else:
+                        kind = kinds[l - 1]
+                        g_block, ct_h = _vjp(
+                            lambda p, hh, _k=kind: self._apply_block(p, hh,
+                                                                     _k),
+                            (full[l], acts.pop(l)), (ct_h, aux_ct))
+                        bucket_grads[l] = g_block
+                    if l != 0:
+                        full.pop(l, None)   # this layer's weights are done
+            with tracing.span("zero.push"):
+                if self.compressor is not None:
+                    pushed, _ = compressed_reduce_scatter_bucket(
+                        bucket_grads, self.specs, bucket, self.group,
+                        self.compressor,
+                        residuals=({l: state["residuals"][l] for l in bucket}
+                                   if self._use_residuals else None))
                 else:
-                    kind = kinds[l - 1]
-                    g_block, ct_h = _vjp(
-                        lambda p, hh, _k=kind: self._apply_block(p, hh, _k),
-                        (full[l], acts.pop(l)), (ct_h, aux_ct))
-                    bucket_grads[l] = g_block
-                if l != 0:
-                    full.pop(l, None)     # this layer's weights are done
-            if self.compressor is not None:
-                pushed, _ = compressed_reduce_scatter_bucket(
-                    bucket_grads, self.specs, bucket, self.group,
-                    self.compressor,
-                    residuals=({l: state["residuals"][l] for l in bucket}
-                               if self._use_residuals else None))
-            else:
-                pushed = reduce_scatter_bucket(bucket_grads, self.specs,
-                                               bucket, self.group)
-            del bucket_grads
-            for l, g in pushed.items():
-                grad_shards[l] = g.div_(self.axis_size)   # sum → mean
+                    pushed = reduce_scatter_bucket(bucket_grads, self.specs,
+                                                   bucket, self.group)
+                del bucket_grads
+                for l, g in pushed.items():
+                    grad_shards[l] = g.div_(self.axis_size)   # sum → mean
         full.clear()
 
         # ---- sharded optimizer update (ZeRO: on local shards only) ------
-        self.optimizer.update(grad_shards, state["opt"], shards)
+        with tracing.span("zero.optimizer"):
+            self.optimizer.update(grad_shards, state["opt"], shards)
         del grad_shards
         loss = loss.detach()
         if self.axis_size > 1:

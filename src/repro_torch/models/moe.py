@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import activation_fn, dense, init_dense
 
@@ -77,15 +78,20 @@ def route(probs: torch.Tensor, cfg: ArchConfig, cap: int) -> Routing:
     """Top-k of ``probs (N, E)`` (ties: the lower expert first), then each
     assignment's position inside its expert in assignment-major order."""
     e, k = cfg.num_experts, cfg.top_k
-    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top_p, top_e = top_p[:, :k], top_e[:, :k]
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)
-    flat_e = top_e.reshape(-1)                                  # (N·k,)
-    onehot = F.one_hot(flat_e, e)                               # (N·k, E)
-    pos_in_e = torch.cumsum(onehot, dim=0) - onehot             # exclusive
-    pos = (pos_in_e * onehot).sum(dim=1)                        # (N·k,)
-    keep = pos < cap
-    slot = flat_e * cap + torch.where(keep, pos, 0)
+    with tracing.span("moe.route"):
+        top_p, top_e = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+        top_p, top_e = top_p[:, :k], top_e[:, :k]
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        flat_e = top_e.reshape(-1)                              # (N·k,)
+        onehot = F.one_hot(flat_e, e)                           # (N·k, E)
+        pos_in_e = torch.cumsum(onehot, dim=0) - onehot         # exclusive
+        pos = (pos_in_e * onehot).sum(dim=1)                    # (N·k,)
+        keep = pos < cap
+        slot = flat_e * cap + torch.where(keep, pos, 0)
+    if tracing.recording():
+        tracing.count("moe.assignments", keep.numel())
+        tracing.count("moe.kept", keep.sum())
     return Routing(top_p, top_e, slot, keep)
 
 
@@ -125,4 +131,6 @@ def apply_moe(params, x: torch.Tensor, cfg: ArchConfig
     combined = (gathered * w[:, None]).reshape(n, k, d).sum(dim=1)
 
     aux = router_load_balance_loss(probs, r.top_e, e)
-    return combined.reshape(b, t, d), aux
+    out = combined.reshape(b, t, d)
+    tracing.backward_span("moe.backward", x, (out, aux))
+    return out, aux

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.dist.zero import _vjp
 from repro_torch.models import model as model_lib
 
@@ -73,6 +74,11 @@ def measure_layer_times(zero, hook, state, batch, *, iters: int) -> None:
     cotangent (ones, ``aux_weight``), so an MoE block's cost includes the
     router's backward.
     """
+    with tracing.span("runtime.measure"):
+        _measure(zero, hook, state, batch, iters)
+
+
+def _measure(zero, hook, state, batch, iters: int) -> None:
     tr = zero
     Ls, kinds = tr.num_layers, tr._kinds
     device = tr.device

@@ -28,12 +28,14 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as model_lib
 from repro_torch.models.attention import KVCache
 
-# called after the prefill (step 0) and after each decode step i (1..K)
-# with that step's logits (B, 1, V) and the caches
+# called after the prefill (step 0) and after each decode step i (1..K),
+# once its next token is chosen, with that step's logits (B, 1, V) and the
+# caches
 StepHook = Callable[[int, torch.Tensor, List[Any]], None]
 
 
@@ -94,12 +96,13 @@ def batched_generate(cfg: ArchConfig, params, prompts: torch.Tensor, *,
         # prefill cached t tokens; decode continues from position t
         for i in range(max_new_tokens):
             tokens.append(cur)
-            logits, caches = step(params, cur, caches)
+            with tracing.span("serve.decode_step"):
+                logits, caches = step(params, cur, caches)
+                if greedy or generator is None:
+                    cur = torch.argmax(logits[:, -1], dim=-1)
+                else:
+                    cur = sample(logits[:, -1], generator)
+                cur = cur[:, None].to(torch.int32)
             if on_step is not None:
                 on_step(i + 1, logits, caches)
-            if greedy or generator is None:
-                cur = torch.argmax(logits[:, -1], dim=-1)
-            else:
-                cur = sample(logits[:, -1], generator)
-            cur = cur[:, None].to(torch.int32)
         return torch.cat(tokens, dim=1)

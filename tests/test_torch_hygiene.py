@@ -171,3 +171,41 @@ def test_no_port_module_names_an_xla_flag():
                     "XLA_FLAGS" in node.value and id(node) not in docs:
                 found.append((path, node.lineno))
     assert not found
+
+
+def test_only_the_tracing_module_reaches_the_profiler():
+    """Every span of the port goes through ``repro_torch.tracing``, which
+    enters ``record_function`` only while a profiler records: no other
+    module names ``record_function``, ``torch.profiler``,
+    ``torch.autograd.profiler`` or the profiler's flag, so no span that
+    costs its ~12 µs with the profiler off can reach the hot path."""
+    names = {"record_function", "_profiler_enabled"}
+    modules = ("torch.profiler", "torch.autograd.profiler")
+    found = []
+    for base, _, files in os.walk(PORT):
+        for f in files:
+            path = os.path.join(base, f)
+            if not f.endswith(".py") or \
+                    path == os.path.join(PORT, "tracing.py"):
+                continue
+            with open(path) as fh:
+                mod = ast.parse(fh.read(), path)
+            for node in ast.walk(mod):
+                if isinstance(node, ast.Import):
+                    found += [(path, a.name) for a in node.names
+                              if a.name.startswith(modules)]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    if node.module.startswith(modules) or \
+                            node.module in ("torch", "torch.autograd") and \
+                            any(a.name == "profiler" for a in node.names):
+                        found.append((path, node.module))
+                elif isinstance(node, ast.Attribute) and (
+                        node.attr in names or node.attr == "profiler" and
+                        ast.unparse(node.value) in ("torch",
+                                                    "torch.autograd")):
+                    found.append((path, node.attr))
+                elif isinstance(node, ast.Name) and node.id in names:
+                    found.append((path, node.id))
+    assert not found
+    with open(os.path.join(PORT, "tracing.py")) as fh:
+        assert "_profiler_enabled" in fh.read()
