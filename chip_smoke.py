@@ -3369,10 +3369,11 @@ def serve_through_the_launcher(name: str, smi: str, shape=None,
 
 
 def decode_trace(run, steps: int = 3, phase: str = "serve") -> None:
-    """``steps`` decode steps of the served model under ``torch.profiler``
-    (after a fresh prefill and one untraced step): kernels a step, device
-    busy ms a step against the served run's steady decode ms (the idle
-    share), and the five largest kernels."""
+    """``steps`` eager decode steps of the served model under
+    ``torch.profiler`` (after a fresh prefill and one untraced step):
+    kernels a step, device busy ms a step against the served run's steady
+    decode ms, a replayed CUDA graph of the same kernels (the idle share),
+    and the five largest kernels."""
     from repro_torch.models import model
     from repro_torch.serve import decode as serve
     cfg, params, prompts = run["cfg"], run["params"], run["prompts"]
@@ -3669,9 +3670,11 @@ def phase_verify(smi: str) -> None:
 def traced(fn) -> list:
     """``fn()`` under ``torch.profiler``, the card idle before and after
     the window so that it holds whole calls: the device rows of
-    ``key_averages()``."""
+    ``key_averages()``, less the port's spans' (a span's device row spans
+    the kernels it launched, which have rows of their own)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3679,7 +3682,8 @@ def traced(fn) -> list:
         fn()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(tracing.PREFIX)]
 
 
 def profile_step(rt, steady: float, phase: str = "profile") -> None:

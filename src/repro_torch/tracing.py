@@ -15,6 +15,12 @@ exactly the window a profiler records, and a run without one pays a flag
 check a call (a ``record_function`` entered with no profiler costs ~50x
 that).  So ``torch.profiler`` sees the spans on the host and attributes
 the kernels they launch, and ``emit_nvtx`` shows them under Nsight.
+
+Nothing of this module is captured into a CUDA graph: while the current
+stream captures, :func:`recording` is false, :func:`span` is a no-op
+context and :func:`count` adds nothing, so a graph captured under the
+profiler is the one captured without it.  What runs inside a graph is
+counted on the host around its replay (``serve/graphs.py``).
 """
 
 from __future__ import annotations
@@ -31,15 +37,22 @@ _OFF = contextlib.nullcontext()
 _counters: Dict[str, List] = {}
 
 
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph."""
+    return torch.cuda.is_initialized() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 def recording() -> bool:
-    """Whether a torch profiler records on this process now."""
-    return torch._C._autograd._profiler_enabled()
+    """Whether spans and counters take effect now: a torch profiler
+    records on this process and no graph is being captured."""
+    return torch._C._autograd._profiler_enabled() and not capturing()
 
 
 def span(name: str):
     """``record_function("repro_torch.<name>")`` while the profiler
-    records, else a no-op context."""
-    if torch._C._autograd._profiler_enabled():
+    records and no graph is being captured, else a no-op context."""
+    if torch._C._autograd._profiler_enabled() and not capturing():
         return record_function(PREFIX + name)
     return _OFF
 
@@ -73,9 +86,10 @@ def backward_span(name: str, x: torch.Tensor,
 
 
 def count(name: str, value: Union[torch.Tensor, int]) -> None:
-    """Add ``value`` into counter ``name`` while the profiler records.  A
-    tensor is added on its device and never read back here."""
-    if not torch._C._autograd._profiler_enabled():
+    """Add ``value`` into counter ``name`` while the profiler records and
+    no graph is being captured.  A tensor is added on its device and never
+    read back here."""
+    if not torch._C._autograd._profiler_enabled() or capturing():
         return
     acc = _counters.setdefault(name, [None, 0])
     if isinstance(value, torch.Tensor):

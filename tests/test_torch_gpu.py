@@ -942,20 +942,237 @@ def test_decode_steps_never_synchronise(cuda):
     assert bool(torch.isfinite(logits).all())
 
 
-def test_batched_generate_never_synchronises(cuda):
+def _graph_events(monkeypatch):
+    """What ``serve/graphs.py`` counts (captures, replays), counted here
+    whether or not a profiler records, from an empty graph store (a freed
+    parameter's address may come back, and with it an earlier test's
+    key)."""
+    import collections
+    from repro_torch import tracing
+    from repro_torch.serve import graphs
+    graphs._store.clear()
+    seen = collections.Counter()
+    monkeypatch.setattr(tracing, "count",
+                        lambda name, value: seen.update({name: value}))
+    return seen
+
+
+def test_batched_generate_never_synchronises(cuda, monkeypatch):
     """The whole generate loop, prefill included (flash, the scan, the
     local cache's roll), under ``set_sync_debug_mode("error")`` after a
-    first run has built the kernels; the same tokens as that run."""
+    first run has built the kernels and captured the decode step's graph;
+    the second call replays it, and gives the same tokens as the first."""
     from repro_torch.serve import batched_generate
     cfg, params, prompts = _serve_setup(cuda)
+    seen = _graph_events(monkeypatch)
     first = batched_generate(cfg, params, prompts, max_new_tokens=6)
     torch.cuda.synchronize()
+    seen.clear()
     torch.cuda.set_sync_debug_mode("error")
     try:
         again = batched_generate(cfg, params, prompts, max_new_tokens=6)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(first, again)
+    assert seen == {"serve.graph_replays": 6}
+
+
+# every family that decodes: dense, MoE, local windows with softcaps, the
+# RG-LRU with local and global attention, the mLSTM and sLSTM
+GRAPHED = ["granite-3-2b", "granite-moe-1b-a400m", "gemma2-2b",
+           "recurrentgemma-2b", "xlstm-350m"]
+
+
+def _served_model(name, dev, seed=0):
+    """Reduced ``name`` and its parameters; recurrentgemma-2b is
+    ``_serve_setup``'s three block kinds, xlstm-350m 8 layers (one
+    sLSTM)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    if name == "recurrentgemma-2b":
+        cfg = _serve_setup(dev)[0]
+    else:
+        cfg = get_config(name).reduced(
+            **({"num_layers": 8} if name == "xlstm-350m" else {}))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    return cfg, params
+
+
+def _served_prompts(cfg, b, t, dev, seed=1):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, t), dtype=np.int32)).to(dev)
+
+
+def _serve_runs(cfg, params, dev, lengths=(70, 33), new=6):
+    """``batched_generate`` greedy, then sampled from a generator seeded
+    2, at each prompt length: each call's tokens and the logits its hook
+    saw."""
+    from repro_torch.serve import batched_generate
+    runs = []
+    for t in lengths:
+        for greedy in (True, False):
+            seen = []
+            out = batched_generate(
+                cfg, params, _served_prompts(cfg, 2, t, dev),
+                max_new_tokens=new, greedy=greedy,
+                generator=torch.Generator(device=dev).manual_seed(2),
+                on_step=lambda i, logits, caches: seen.append(logits))
+            runs.append((out, torch.stack(seen)))
+    return runs
+
+
+def _eager(monkeypatch, fn):
+    """``fn()`` with the graph path off: the eager loop on the card."""
+    from repro_torch.serve import graphs
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "lookup", lambda *a, **k: None)
+        return fn()
+
+
+@pytest.mark.parametrize("name", GRAPHED)
+def test_graphed_decode_is_bitwise_the_eager_loop(cuda, monkeypatch, name):
+    """Greedy and sampled, at two prompt lengths (past and inside the
+    local window): the tokens and the hook's logits of the graph path are
+    the eager loop's bit for bit.  Each length's first call captures on
+    its second step, the sampled call after it replays the stored graph
+    from its first; a hook's logits are not overwritten by later steps."""
+    from repro_torch.serve import graphs
+    cfg, params = _served_model(name, cuda)
+    seen = _graph_events(monkeypatch)
+    graphed = _serve_runs(cfg, params, cuda)
+    assert seen == {"serve.graph_captures": 2,
+                    "serve.graph_replays": 2 * 5 + 2 * 6}
+    assert sum(g.graph is not None for g in graphs._store.values()) >= 2
+    eager = _eager(monkeypatch, lambda: _serve_runs(cfg, params, cuda))
+    for (out, logits), (want, want_logits) in zip(graphed, eager):
+        assert torch.equal(out, want), name
+        assert torch.equal(logits, want_logits), name
+
+
+def test_a_new_parameter_leaf_recaptures(cuda, monkeypatch):
+    """A graph reads its parameters by address: a new dict, or the same
+    dict's leaves with one replaced, is a new key that captures anew, and
+    its tokens follow the new parameters (the eager loop's on them)."""
+    from repro_torch import tree
+    from repro_torch.serve import batched_generate
+    cfg, a = _served_model("granite-3-2b", cuda)
+    _, b = _served_model("granite-3-2b", cuda, seed=5)
+    c = tree.tree_map(lambda x: x, a)
+    c["final"]["norm"] = a["final"]["norm"] + 0.5
+    prompts = _served_prompts(cfg, 2, 40, cuda)
+
+    def serve(params):
+        return batched_generate(cfg, params, prompts, max_new_tokens=5)
+
+    seen = _graph_events(monkeypatch)
+    for i, params in enumerate((a, b, c), start=1):
+        got = serve(params)
+        assert seen["serve.graph_captures"] == i
+        assert torch.equal(got, _eager(monkeypatch, lambda: serve(params)))
+    serve(a)                                      # its key is still held
+    assert seen["serve.graph_captures"] == 3
+
+
+def test_the_graph_store_keeps_its_bound(cuda, monkeypatch):
+    """More cache lengths than ``MAX_GRAPHS``: the store never holds more,
+    it drops the key used longest ago, and a dropped key captures again."""
+    from repro_torch.serve import batched_generate, graphs
+    cfg, params = _served_model("granite-3-2b", cuda)
+    seen = _graph_events(monkeypatch)
+    lengths = [20 + i for i in range(graphs.MAX_GRAPHS + 2)]
+    for t in lengths:
+        batched_generate(cfg, params, _served_prompts(cfg, 2, t, cuda),
+                         max_new_tokens=3)
+        assert len(graphs._store) <= graphs.MAX_GRAPHS
+    assert seen["serve.graph_captures"] == len(lengths)
+    batched_generate(cfg, params, _served_prompts(cfg, 2, lengths[-1], cuda),
+                     max_new_tokens=3)
+    assert seen["serve.graph_captures"] == len(lengths)
+    batched_generate(cfg, params, _served_prompts(cfg, 2, lengths[0], cuda),
+                     max_new_tokens=3)
+    assert seen["serve.graph_captures"] == len(lengths) + 1
+
+
+def test_a_single_step_call_never_captures(cuda, monkeypatch):
+    """One decode step on a key without a graph stays eager and stores
+    nothing; on a key with one (the cache length, not the prompt's, is
+    the key's) it replays."""
+    from repro_torch.serve import batched_generate, graphs
+    cfg, params = _served_model("granite-3-2b", cuda, seed=7)
+    prompts = _served_prompts(cfg, 2, 30, cuda)
+    seen = _graph_events(monkeypatch)
+
+    def one():
+        return batched_generate(cfg, params, prompts, max_new_tokens=1)
+
+    got = one()
+    assert seen == {} and len(graphs._store) == 0
+    batched_generate(cfg, params, prompts[:, 1:], max_new_tokens=2)
+    assert seen == {"serve.graph_captures": 1, "serve.graph_replays": 1}
+    again = one()
+    assert seen["serve.graph_replays"] == 2
+    want = _eager(monkeypatch, one)
+    assert torch.equal(got, want) and torch.equal(again, want)
+
+
+def test_a_replayed_decode_step_makes_few_host_launches(cuda):
+    """Under the profiler, two replayed calls of one prompt length that
+    differ by 8 decode steps: the difference in host launches (kernel,
+    memcpy, memset and graph launches, as the benchmark counts them) is
+    at most 10 a step: the token's copy, the graph, the argmax and its
+    cast."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve import batched_generate
+    launch = re.compile(r"LaunchKernel|cuLaunch|Memcpy|Memset|GraphLaunch")
+    cfg, params = _served_model("granite-3-2b", cuda)
+    prompts = _served_prompts(cfg, 2, 40, cuda)
+
+    def launches(new):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            batched_generate(cfg, params, prompts, max_new_tokens=new)
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events() if launch.search(e.name)
+                   and e.device_type == torch.autograd.DeviceType.CPU)
+
+    for new in (4, 12):                           # capture both keys
+        batched_generate(cfg, params, prompts, max_new_tokens=new)
+    per_step = (launches(12) - launches(4)) / 8
+    assert 0 < per_step <= 10, per_step
+
+
+def test_a_graph_captured_under_the_profiler(cuda):
+    """The MoE, whose router counts under the profiler: a key captured
+    while the profiler records gives the eager loop's tokens, counts one
+    capture and a replay for every later step, and its router counted the
+    prefill and the eager first step only (nothing of tracing is
+    captured)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tracing
+    from repro_torch.serve import batched_generate, graphs
+    cfg, params = _served_model("granite-moe-1b-a400m", cuda, seed=3)
+    b, t, new = 2, 24, 5
+    prompts = _served_prompts(cfg, b, t, cuda)
+    graphs._store.clear()
+    tracing.reset_counters()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            got = batched_generate(cfg, params, prompts,
+                                   max_new_tokens=new)
+            torch.cuda.synchronize()
+        c = tracing.counters()
+    finally:
+        tracing.reset_counters()
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(graphs, "lookup", lambda *a, **k: None)
+        want = batched_generate(cfg, params, prompts, max_new_tokens=new)
+    assert torch.equal(got, want)
+    assert c["serve.graph_captures"] == 1
+    assert c["serve.graph_replays"] == new - 1
+    assert c["moe.assignments"] == cfg.num_layers * cfg.top_k * b * (t + 1)
 
 
 def test_serve_launcher_runs_on_the_card_by_default(cuda, capsys):

@@ -26,7 +26,7 @@ from repro_torch.dist.dynamic import DynamicTrainer
 from repro_torch.dist.zero import ZeroTrainer
 from repro_torch.models import model, moe
 from repro_torch.optim import adamw
-from repro_torch.serve import decode
+from repro_torch.serve import decode, graphs
 
 PLAN = BucketPlan(forward=((0, 1), (2, 3)), backward=((3,), (2, 1, 0)))
 # a tiny MoE that drops assignments: 8 experts, top-2, capacity 0.5
@@ -234,6 +234,51 @@ def test_decode_spans_one_per_new_token(tmp_path):
     assert len(steps) == 5 and marks == list(range(6))
     hooks = [s for s in spans if s[0] == "hook"]
     assert len(hooks) == 6 and not any(_inside(h, steps) for h in hooks)
+
+
+def test_nothing_is_counted_or_spanned_while_a_graph_is_captured(
+        monkeypatch):
+    """While the current stream captures a CUDA graph (here pretended),
+    ``count`` adds nothing, with a tensor or an int, ``span`` enters no
+    ``record_function`` and ``recording`` is false, even under the
+    profiler: a graph captured under it is the one captured without it."""
+    tracing.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: True)
+        assert tracing.capturing() and not tracing.recording()
+        tracing.count("moe.kept", torch.tensor(3))
+        tracing.count("moe.assignments", 4)
+        assert tracing.span("serve.decode_step") is tracing._OFF
+        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                            lambda: False)
+        assert tracing.recording()
+        tracing.count("moe.assignments", 4)
+    try:
+        assert tracing.counters() == {"moe.assignments": 4}
+    finally:
+        tracing.reset_counters()
+
+
+def test_cpu_generate_makes_no_graph_and_counts_no_replay(tmp_path):
+    """On the CPU ``batched_generate`` stays the eager loop: no key enters
+    the graph store and, under the profiler, no capture or replay is
+    counted."""
+    cfg = _cfg()
+    params = model.init_params(cfg, torch.Generator().manual_seed(0))
+    prompts = _batch(cfg, b=2, t=12)["tokens"].to(torch.int32)
+    before = dict(graphs._store)
+    tracing.reset_counters()
+    _traced(lambda: decode.batched_generate(cfg, params, prompts,
+                                            max_new_tokens=4), tmp_path)
+    try:
+        c = tracing.counters()
+        assert "serve.graph_replays" not in c
+        assert "serve.graph_captures" not in c
+        assert graphs._store == before
+    finally:
+        tracing.reset_counters()
 
 
 # ---------------------------------------------------------------------------
