@@ -12,6 +12,7 @@ from repro_torch.configs.granite_3_2b import CONFIG as _granite2b
 from repro_torch.configs.grok_1_314b import CONFIG as _grok
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
+from repro_torch.configs.granite_4_0_h_small import CONFIG as _granite4h
 
 ARCHITECTURES = {
     cfg.name: cfg
@@ -21,15 +22,20 @@ ARCHITECTURES = {
     )
 }
 
+# Architectures of the port alone (the reference package has no Mamba-2):
+# ``get_config`` finds them; ``ARCHITECTURES`` stays the reference's set.
+PORT_ARCHITECTURES = {cfg.name: cfg for cfg in (_granite4h,)}
+
 
 def get_config(name: str) -> ArchConfig:
     try:
-        return ARCHITECTURES[name]
+        return ARCHITECTURES.get(name) or PORT_ARCHITECTURES[name]
     except KeyError:
         raise ValueError(
-            f"unknown architecture {name!r}; available: {sorted(ARCHITECTURES)}"
+            f"unknown architecture {name!r}; available: "
+            f"{sorted(ARCHITECTURES) + sorted(PORT_ARCHITECTURES)}"
         ) from None
 
 
 __all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "ARCHITECTURES",
-           "get_config", "shape_applicable"]
+           "PORT_ARCHITECTURES", "get_config", "shape_applicable"]

@@ -12,7 +12,8 @@ import dataclasses
 from typing import Literal, Optional, Tuple
 
 Family = Literal["dense", "moe", "ssm", "vlm", "audio", "hybrid"]
-LayerKind = Literal["global_attn", "local_attn", "mlstm", "slstm", "rglru"]
+LayerKind = Literal["global_attn", "local_attn", "mlstm", "slstm", "rglru",
+                    "mamba2"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,15 +39,34 @@ class ArchConfig:
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
     causal: bool = True                      # False for encoder-only (hubert)
+    position_embedding: Literal["rope", "nope"] = "rope"
+
+    # muP multipliers (granite 4.0); the defaults are the port's plain model
+    embedding_multiplier: Optional[float] = None   # None: sqrt(d_model)
+    attention_multiplier: Optional[float] = None   # None: 1 / sqrt(head_dim)
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0              # logits are divided by it
 
     # MoE
-    num_experts: int = 0
+    num_experts: int = 0                     # the router's width
     top_k: int = 0
     capacity_factor: float = 1.25
+    # the expert share this device holds: experts first .. first + held - 1
+    # (held 0: every expert); the router still routes over all of them
+    experts_first: int = 0
+    experts_held: int = 0
+    shared_d_ff: int = 0                     # a shared SwiGLU expert's width
 
     # SSM / hybrid
     rglru_lru_width: Optional[int] = None    # default d_model
     mlstm_proj_factor: float = 2.0
+    # Mamba-2 (``mamba2`` layers): heads of mamba_head_dim, d_state, groups
+    mamba_heads: int = 0
+    mamba_head_dim: int = 64
+    mamba_d_state: int = 128
+    mamba_groups: int = 1
+    mamba_conv: int = 4
+    mamba_chunk: int = 256                   # the SSD's chunk (train, prefill)
 
     # modality frontend (stubbed): inputs are precomputed embeddings
     frontend: Literal["none", "vision", "audio"] = "none"
@@ -67,6 +87,11 @@ class ArchConfig:
             object.__setattr__(self, "layer_pattern", ("global_attn",))
         if self.num_heads % max(self.num_kv_heads, 1) != 0:
             raise ValueError(f"{self.name}: heads not divisible by kv heads")
+        last = self.experts_first + self.num_held_experts - 1
+        if last >= self.num_experts:
+            raise ValueError(f"{self.name}: experts {self.experts_first}.."
+                             f"{last} lie outside the router's "
+                             f"{self.num_experts}")
 
     # ------------------------------------------------------------------
     def layer_kinds(self) -> Tuple[LayerKind, ...]:
@@ -76,6 +101,20 @@ class ArchConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def num_held_experts(self) -> int:
+        """How many experts this device holds (all, unless a share)."""
+        return self.experts_held or self.num_experts
+
+    @property
+    def mamba_inner(self) -> int:
+        return self.mamba_heads * self.mamba_head_dim
+
+    @property
+    def mamba_conv_dim(self) -> int:
+        """x, B and C: the channels of the Mamba-2 causal conv."""
+        return self.mamba_inner + 2 * self.mamba_groups * self.mamba_d_state
 
     @property
     def q_dim(self) -> int:
@@ -94,6 +133,10 @@ class ArchConfig:
             kv -= 1
         experts = min(self.num_experts, 4) if self.is_moe else 0
         top_k = min(self.top_k, experts) if experts else 0
+        # Mamba-2: 4 heads spanning 2 x d_model, a state of 16, chunk 16
+        mamba = dict(mamba_heads=4, mamba_head_dim=d_model // 2,
+                     mamba_d_state=16, mamba_chunk=16) \
+            if self.mamba_heads else {}
         return dataclasses.replace(
             self,
             name=f"{self.name}-smoke",
@@ -106,6 +149,10 @@ class ArchConfig:
             vocab_size=vocab,
             num_experts=experts,
             top_k=top_k,
+            experts_first=0,
+            experts_held=0,
+            shared_d_ff=d_model if self.shared_d_ff else 0,
+            **mamba,
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             rglru_lru_width=d_model if self.rglru_lru_width else None,
             num_vision_tokens=min(self.num_vision_tokens, 16),

@@ -1,7 +1,8 @@
 """Public wrapper of the CUDA flash-attention forward, with its gradient.
 
-``flash_attention(q, k, v, causal, window, softcap)`` keeps the
-reference's ``(B, H, T, hd)`` signature.  On a CUDA tensor it launches
+``flash_attention(q, k, v, causal, window, softcap, scale)`` keeps the
+reference's ``(B, H, T, hd)`` signature (``scale``, the scores' factor,
+defaults to 1 / sqrt(hd)).  On a CUDA tensor it launches
 ``csrc/flash_attention.cu`` (GQA by kv-head index, any T, the head dim as
 it is) or raises; on a CPU tensor it runs the plain version ``_ref_fwd``.
 The inputs may be strided views: the model passes ``(B, T, H, hd)``
@@ -15,7 +16,7 @@ under autograd and returns its vector-Jacobian product.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -27,13 +28,13 @@ MAX_HEAD_DIM = 256
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
 
 
-def _ref_fwd(q, k, v, causal, window, softcap):
+def _ref_fwd(q, k, v, causal, window, softcap, scale=None):
     h, hkv = q.shape[1], k.shape[1]
     rep = h // hkv
     kb = torch.repeat_interleave(k, rep, dim=1) if rep > 1 else k
     vb = torch.repeat_interleave(v, rep, dim=1) if rep > 1 else v
     return attention_ref(q, kb, vb, causal=causal, window=window,
-                         softcap=softcap)
+                         softcap=softcap, scale=scale)
 
 
 def _check(q, k, v) -> None:
@@ -48,8 +49,8 @@ def _check(q, k, v) -> None:
                          f"{k.shape[1]} kv heads")
 
 
-def _launch(q, k, v, causal: bool, window: int,
-            softcap: float) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, window: int, softcap: float,
+            scale: Optional[float] = None) -> torch.Tensor:
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name} must lie on {q.device}, got {x.device}")
@@ -74,7 +75,8 @@ def _launch(q, k, v, causal: bool, window: int,
     fn.restype = ctypes.c_int
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 int(q.dtype == torch.bfloat16), b, h, hkv, tq, tk, hd,
-                ctypes.cast(strides, ctypes.c_void_p), 1.0 / hd ** 0.5,
+                ctypes.cast(strides, ctypes.c_void_p),
+                1.0 / hd ** 0.5 if scale is None else float(scale),
                 float(softcap), int(causal), int(window),
                 torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES["flash_attention_fwd"] += 1
@@ -86,10 +88,10 @@ class _FlashAttention(torch.autograd.Function):
     """Kernel forward, plain-attention backward (the reference's pairing)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
         ctx.save_for_backward(q, k, v)
-        ctx.args = (causal, window, softcap)
-        return _launch(q, k, v, causal, window, softcap)
+        ctx.args = (causal, window, softcap, scale)
+        return _launch(q, k, v, causal, window, softcap, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -98,17 +100,18 @@ class _FlashAttention(torch.autograd.Function):
             q_, k_, v_ = (x.detach().requires_grad_() for x in (q, k, v))
             out = _ref_fwd(q_, k_, v_, *ctx.args)
             dq, dk, dv = torch.autograd.grad(out, (q_, k_, v_), g)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Tq, hd); k,v: (B, Hkv, Tk, hd) → (B, H, Tq, hd)."""
     _check(q, k, v)
     if q.device.type == "cpu":
-        return _ref_fwd(q, k, v, causal, window, softcap)
+        return _ref_fwd(q, k, v, causal, window, softcap, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on the CPU or a CUDA device, "
                          f"got {q.device}")
-    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)

@@ -2,16 +2,21 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
-                  softcap: float = 0.0) -> torch.Tensor:
-    """q: (B,H,Tq,hd); k,v: (B,H,Tk,hd) (heads pre-broadcast for GQA)."""
+                  softcap: float = 0.0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,H,Tq,hd); k,v: (B,H,Tk,hd) (heads pre-broadcast for GQA);
+    ``scale``: the scores' factor (``None``: 1 / sqrt(hd))."""
     hd = q.shape[-1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / np.sqrt(hd)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s / np.sqrt(hd) if scale is None else s * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     tq, tk = q.shape[2], k.shape[2]

@@ -1,4 +1,6 @@
-"""GQA attention with rope, sliding window, logit softcap and a KV cache.
+"""GQA attention with rope (or no positions: ``position_embedding``
+``nope``), sliding window, logit softcap, a scale of the scores
+(``attention_multiplier``, by default 1 / sqrt(head_dim)) and a KV cache.
 
 Three modes share one code path, as in the reference:
 
@@ -70,13 +72,16 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int, dtype):
     return torch.where(ok, zero, neg).to(dtype)
 
 
-def _sdpa(q, k, v, bias, n_rep: int, cap: float):
-    """q: (B,Tq,Hq,hd); k,v: (B,Tk,Hkv,hd); bias: (Tq,Tk)."""
+def _sdpa(q, k, v, bias, n_rep: int, cap: float,
+          scale: Optional[float] = None):
+    """q: (B,Tq,Hq,hd); k,v: (B,Tk,Hkv,hd); bias: (Tq,Tk); ``scale``: the
+    scores' factor (``None``: 1 / sqrt(hd))."""
     b, tq, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, tq, hkv, n_rep, hd)
-    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k) \
-        / float(np.float32(np.sqrt(hd)))
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k)
+    logits = logits / float(np.float32(np.sqrt(hd))) if scale is None \
+        else logits * scale
     logits = softcap(logits.float(), cap)
     logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -96,7 +101,8 @@ def _block_bias(q_pos, k_pos, *, causal, window):
 
 
 def _sdpa_chunked(q, k, v, *, n_rep: int, cap: float, causal: bool,
-                  window: int, chunk: int | None = None):
+                  window: int, chunk: int | None = None,
+                  scale: Optional[float] = None):
     """Blockwise attention with online softmax (the flash pattern, plain).
 
     Memory O(Tq·chunk) instead of O(Tq·Tk); causal/windowed query blocks
@@ -112,7 +118,7 @@ def _sdpa_chunked(q, k, v, *, n_rep: int, cap: float, causal: bool,
     n_q = tq // chunk if tq % chunk == 0 else 1
     qc = tq // n_q
 
-    scale = 1.0 / np.sqrt(hd)
+    scale = 1.0 / np.sqrt(hd) if scale is None else scale
     qg = q.reshape(b, tq, hkv, n_rep, hd)
     outs = []
     for qi in range(n_q):
@@ -170,21 +176,23 @@ def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
         raise ValueError(f"unknown attention mode {mode!r}")
 
     pos = torch.arange(t, device=x.device) if positions is None else positions
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    if cfg.position_embedding == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    scale = cfg.attention_multiplier
     if x.is_cuda:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=cfg.causal,
-                              window=window,
-                              softcap=cfg.attn_logit_softcap).transpose(1, 2)
+                              window=window, softcap=cfg.attn_logit_softcap,
+                              scale=scale).transpose(1, 2)
     elif t > FULL_ATTN_MAX:
         out = _sdpa_chunked(q, k, v, n_rep=n_rep,
                             cap=cfg.attn_logit_softcap,
-                            causal=cfg.causal, window=window)
+                            causal=cfg.causal, window=window, scale=scale)
     else:
         bias = _mask_bias(pos, pos, causal=cfg.causal, window=window,
                           dtype=torch.float32)
-        out = _sdpa(q, k, v, bias, n_rep, cfg.attn_logit_softcap)
+        out = _sdpa(q, k, v, bias, n_rep, cfg.attn_logit_softcap, scale)
     out = out.reshape(b, t, cfg.q_dim)
     new_cache = None
     if mode == "prefill":
@@ -216,8 +224,9 @@ def _decode(q, k, v, cache: Optional[KVCache], cfg: ArchConfig, window: int,
         raise ValueError(f"decode takes one token and a cache, got T = {t} "
                          f"and cache {type(cache).__name__}")
     pos = cache.pos                    # () int32: the new token's position
-    q = apply_rope(q, pos[None][None, :], cfg.rope_theta)
-    k = apply_rope(k, pos[None][None, :], cfg.rope_theta)
+    if cfg.position_embedding == "rope":
+        q = apply_rope(q, pos[None][None, :], cfg.rope_theta)
+        k = apply_rope(k, pos[None][None, :], cfg.rope_theta)
 
     s = cache.k.shape[1]
     if window and window < 10**9:
@@ -239,6 +248,7 @@ def _decode(q, k, v, cache: Optional[KVCache], cfg: ArchConfig, window: int,
     neg = torch.full((), -1e30, dtype=torch.float32, device=q.device)
     bias = torch.where(valid, zero, neg)[None, :]
 
-    out = _sdpa(q, cache.k, cache.v, bias, n_rep, cfg.attn_logit_softcap)
+    out = _sdpa(q, cache.k, cache.v, bias, n_rep, cfg.attn_logit_softcap,
+                cfg.attention_multiplier)
     return out.reshape(b, t, cfg.q_dim), KVCache(k=cache.k, v=cache.v,
                                                  pos=pos + 1)

@@ -1,8 +1,10 @@
 """Per-layer block: init / apply for every layer kind (the attention kinds,
-mLSTM, sLSTM and the RG-LRU), with a dense MLP or, when the config has
-experts, the MoE MLP (``models/moe.py``), whose router load-balance loss is
-the block's aux.  xLSTM configs have ``d_ff = 0``: their blocks carry their
-own up / down projections and no MLP.
+mLSTM, sLSTM, the RG-LRU and Mamba-2), with a dense MLP or, when the config
+has experts, the MoE MLP (``models/moe.py``), whose router load-balance
+loss is the block's aux, plus a shared SwiGLU expert where the config has
+one (``shared_d_ff``).  xLSTM configs have ``d_ff = 0``: their blocks carry
+their own up / down projections and no MLP.  Each branch is added to the
+residual stream times ``cfg.residual_multiplier`` (granite 4.0's muP).
 
 Every block is addressable individually — DynaComm schedules transmissions
 layer by layer.
@@ -23,7 +25,8 @@ ATTN_KINDS = ("global_attn", "local_attn")
 # recurrent kind -> (its parameter key's init, its apply)
 RECURRENT = {"mlstm": (ssm.init_mlstm_params, ssm.apply_mlstm),
              "slstm": (ssm.init_slstm_params, ssm.apply_slstm),
-             "rglru": (ssm.init_rglru_params, ssm.apply_rglru)}
+             "rglru": (ssm.init_rglru_params, ssm.apply_rglru),
+             "mamba2": (ssm.init_mamba2_params, ssm.apply_mamba2)}
 
 
 def _check(cfg: ArchConfig, kind: LayerKind) -> None:
@@ -44,6 +47,9 @@ def init_block(gen, cfg: ArchConfig, kind: LayerKind, dtype=torch.float32,
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
         if cfg.is_moe:
             p["moe"] = init_moe_params(gen, cfg, dtype, device)
+            if cfg.shared_d_ff:
+                p["shared"] = init_mlp(gen, cfg.d_model, cfg.shared_d_ff,
+                                       True, dtype, device)
         else:
             p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
                                 dtype, device)
@@ -61,6 +67,8 @@ def init_block_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
                                     dtype=dtype, device=device)
     if kind == "rglru":
         return ssm.init_rglru_state(cfg, batch, dtype=dtype, device=device)
+    if kind == "mamba2":
+        return ssm.init_mamba2_state(cfg, batch, dtype=dtype, device=device)
     init = ssm.init_mlstm_state if kind == "mlstm" else ssm.init_slstm_state
     return init(cfg, batch, device=device)
 
@@ -79,12 +87,20 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: LayerKind,
     else:
         out, new_cache = RECURRENT[kind][1](params[kind], h, cfg, mode=mode,
                                             state=cache)
-    x = x + out
+    x = _residual(x, out, cfg)
     if cfg.d_ff > 0:
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
         if cfg.is_moe:
             out2, aux = apply_moe(params["moe"], h2, cfg)
+            if "shared" in params:
+                out2 = out2 + apply_mlp(params["shared"], h2, cfg.activation)
         else:
             out2 = apply_mlp(params["mlp"], h2, cfg.activation)
-        x = x + out2
+        x = _residual(x, out2, cfg)
     return x, new_cache, aux
+
+
+def _residual(x: torch.Tensor, branch: torch.Tensor,
+              cfg: ArchConfig) -> torch.Tensor:
+    r = cfg.residual_multiplier
+    return x + branch if r == 1.0 else x + r * branch

@@ -63,12 +63,21 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
     return p
 
 
+def _embed_tokens(cfg: ArchConfig, tokens: torch.Tensor,
+                  table: torch.Tensor) -> torch.Tensor:
+    """The token table's rows times the embedding multiplier (by default
+    float32(sqrt(d_model)))."""
+    if cfg.embedding_multiplier is None:
+        return embed(tokens, table)
+    return embed(tokens, table, scale=False) * cfg.embedding_multiplier
+
+
 def _embed_inputs(cfg: ArchConfig, params: Params,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Produce the (B, T, d) input sequence from the modality's batch."""
     if cfg.frontend == "audio":
         return dense(batch["frames"], params["embed"]["in_proj"])
-    x = embed(batch["tokens"], params["embed"]["table"])
+    x = _embed_tokens(cfg, batch["tokens"], params["embed"]["table"])
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     return x
@@ -77,9 +86,14 @@ def _embed_inputs(cfg: ArchConfig, params: Params,
 def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final"]["norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return logits_from_embedding(x, params["embed"]["table"],
-                                     cfg.final_logit_softcap)
-    return softcap(dense(x, params["final"]["head"]), cfg.final_logit_softcap)
+        logits = logits_from_embedding(x, params["embed"]["table"],
+                                       cfg.final_logit_softcap)
+    else:
+        logits = softcap(dense(x, params["final"]["head"]),
+                         cfg.final_logit_softcap)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -93,7 +107,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
     if mode == "decode":
         if cfg.frontend == "audio":
             raise ValueError("encoder-only model has no decode mode")
-        x = embed(batch["token"], params["embed"]["table"])
+        x = _embed_tokens(cfg, batch["token"], params["embed"]["table"])
     else:
         x = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -8,6 +8,15 @@ gather + weighted combine, step for step as the reference's
 ``apply_moe`` sees: the local batch under ZeRO, one micro-batch in the
 pipeline.
 
+**The expert share.**  A device may hold a share of the experts
+(``cfg.experts_first``, ``cfg.num_held_experts``), as one rank of expert
+parallelism does.  The router keeps its width and routes over every
+expert, each assignment's position inside its expert and the capacity are
+counted over all of them, and the layer computes only its held experts'
+kept assignments: an assignment to an expert held elsewhere is dropped
+here, and the layer's output is the held experts' part of the whole
+layer's.  The load-balance loss is the whole router's.
+
 Three rules keep the port's routing the reference's, integer for integer,
 and the card's result the same from run to run:
 
@@ -17,7 +26,8 @@ and the card's result the same from run to run:
 * **the dispatch adds**: a dropped assignment points at slot ``e·C + 0``,
   which is also the slot of expert e's first kept token, so the scatter is
   an ``index_add`` into zeros with the dropped rows zeroed first; a plain
-  indexed store would let a dropped zero overwrite a kept row.
+  indexed store would let a dropped zero overwrite a kept row.  (An
+  assignment to an expert held elsewhere points at slot 0.)
 * **order-free atomics**: on CUDA the scatter and the gather's backward add
   through atomics.  Every extra contribution to a slot is an exact zero
   (dropped rows are weighted by ``keep``, as in the reference), so the sum
@@ -43,14 +53,15 @@ def expert_capacity(num_tokens: int, cfg: ArchConfig) -> int:
 
 def init_moe_params(gen, cfg: ArchConfig, dtype=torch.float32,
                     device="cpu"):
-    """``router (d, E)``, ``up (E, d, f)``, ``down (E, f, d)`` and, when
-    gated, ``gate (E, d, f)``; each expert draws its own ``init_dense``."""
-    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    """``router (d, E)``, ``up (E', d, f)``, ``down (E', f, d)`` and, when
+    gated, ``gate (E', d, f)``, for the E' experts held; each expert draws
+    its own ``init_dense``."""
+    e, d, f = cfg.num_held_experts, cfg.d_model, cfg.d_ff
 
     def expert_stack(din, dout):
         return torch.stack([init_dense(gen, din, dout, dtype, device)
                             for _ in range(e)])
-    p = {"router": init_dense(gen, d, e, dtype, device),
+    p = {"router": init_dense(gen, d, cfg.num_experts, dtype, device),
          "up": expert_stack(d, f),
          "down": expert_stack(f, d)}
     if cfg.gated_mlp:
@@ -71,13 +82,15 @@ class Routing(NamedTuple):
     top_p: torch.Tensor     # (N, k) renormalised routing weights
     top_e: torch.Tensor     # (N, k) int64 chosen experts, best first
     slot: torch.Tensor      # (N·k,) int64 row of the dispatch buffer
-    keep: torch.Tensor      # (N·k,) bool: within the expert's capacity
+    keep: torch.Tensor      # (N·k,) bool: held here, within capacity
 
 
 def route(probs: torch.Tensor, cfg: ArchConfig, cap: int) -> Routing:
     """Top-k of ``probs (N, E)`` (ties: the lower expert first), then each
-    assignment's position inside its expert in assignment-major order."""
+    assignment's position inside its expert in assignment-major order; the
+    dispatch rows are the held experts' (``E' x cap``)."""
     e, k = cfg.num_experts, cfg.top_k
+    whole = cfg.num_held_experts == e
     with tracing.span("moe.route"):
         top_p, top_e = torch.sort(probs, dim=-1, descending=True,
                                   stable=True)
@@ -88,19 +101,29 @@ def route(probs: torch.Tensor, cfg: ArchConfig, cap: int) -> Routing:
         pos_in_e = torch.cumsum(onehot, dim=0) - onehot         # exclusive
         pos = (pos_in_e * onehot).sum(dim=1)                    # (N·k,)
         keep = pos < cap
-        slot = flat_e * cap + torch.where(keep, pos, 0)
+        if whole:
+            held, local = None, flat_e
+        else:
+            local = flat_e - cfg.experts_first
+            held = (local >= 0) & (local < cfg.num_held_experts)
+            keep = keep & held
+            local = torch.where(held, local, 0)
+        slot = local * cap + torch.where(keep, pos, 0)
     if tracing.recording():
-        tracing.count("moe.assignments", keep.numel())
+        tracing.count("moe.routed", keep.numel())
+        tracing.count("moe.assignments",
+                      keep.numel() if held is None else held.sum())
         tracing.count("moe.kept", keep.sum())
     return Routing(top_p, top_e, slot, keep)
 
 
 def apply_moe(params, x: torch.Tensor, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d) → (output, aux_loss)."""
+    """x: (B, T, d) → (output, aux_loss): the held experts' part of the
+    layer's output, the whole router's aux."""
     b, t, d = x.shape
     n = b * t
-    e, k = cfg.num_experts, cfg.top_k
+    e, k = cfg.num_held_experts, cfg.top_k
     cap = expert_capacity(n, cfg)
     xf = x.reshape(n, d)
 
@@ -130,7 +153,7 @@ def apply_moe(params, x: torch.Tensor, cfg: ArchConfig
     w = top_p.reshape(-1) * r.keep.to(x.dtype)
     combined = (gathered * w[:, None]).reshape(n, k, d).sum(dim=1)
 
-    aux = router_load_balance_loss(probs, r.top_e, e)
+    aux = router_load_balance_loss(probs, r.top_e, cfg.num_experts)
     out = combined.reshape(b, t, d)
     tracing.backward_span("moe.backward", x, (out, aux))
     return out, aux

@@ -37,8 +37,32 @@ def _moe_flops(cfg: ArchConfig, b: int, t: int) -> float:
     cap = expert_capacity(n, cfg)
     mats = 3 if cfg.gated_mlp else 2
     router = 2.0 * n * cfg.d_model * cfg.num_experts
-    experts = 2.0 * cfg.num_experts * cap * cfg.d_model * cfg.d_ff * mats
-    return router + experts
+    experts = 2.0 * cfg.num_held_experts * cap * cfg.d_model * cfg.d_ff \
+        * mats
+    shared = 2.0 * n * cfg.d_model * cfg.shared_d_ff * 3
+    return router + experts + shared
+
+
+def _ssd_flops(cfg: ArchConfig, b: int, t: int, decode: bool) -> float:
+    """The SSD's products: a decode step updates and reads each head's
+    P x N state; train / prefill by chunks of Q, per chunk C B^T (Q^2 N a
+    group), (L o C B^T)(dt x) (Q^2 P a head), the chunk's state and the
+    output from the state it starts from (Q P N a head each)."""
+    h, p, n = cfg.mamba_heads, cfg.mamba_head_dim, cfg.mamba_d_state
+    if decode:
+        return 2.0 * b * t * h * p * n * 2
+    q = cfg.mamba_chunk
+    chunks = -(-t // q)
+    macs = q * q * (cfg.mamba_groups * n + h * p) + 2 * q * h * p * n
+    return 2.0 * b * chunks * macs
+
+
+def _mamba2_flops(cfg: ArchConfig, b: int, t: int, decode: bool) -> float:
+    d, inner, conv = cfg.d_model, cfg.mamba_inner, cfg.mamba_conv_dim
+    proj = 2.0 * b * t * d * (inner + conv + cfg.mamba_heads)
+    out = 2.0 * b * t * inner * d
+    return proj + 2.0 * b * t * conv * cfg.mamba_conv \
+        + _ssd_flops(cfg, b, t, decode) + out
 
 
 def _mlstm_flops(cfg: ArchConfig, b: int, t: int, quadratic: bool) -> float:
@@ -78,6 +102,8 @@ def block_forward_flops(cfg: ArchConfig, kind: str, b: int, t: int,
         f = _slstm_flops(cfg, b, t)
     elif kind == "rglru":
         f = _rglru_flops(cfg, b, t)
+    elif kind == "mamba2":
+        f = _mamba2_flops(cfg, b, t, decode=(mode == "decode"))
     else:
         raise ValueError(kind)
     if cfg.d_ff > 0:
@@ -119,6 +145,9 @@ def model_flops_per_token(cfg: ArchConfig) -> float:
         # subtract inactive expert params
         mats = 3 if cfg.gated_mlp else 2
         per_expert = mats * cfg.d_model * cfg.d_ff
-        inactive = (cfg.num_experts - cfg.top_k) * per_expert * cfg.num_layers
+        # a share of the experts sees top_k x held / E of a token's
+        active = cfg.top_k * cfg.num_held_experts / cfg.num_experts
+        inactive = (cfg.num_held_experts - active) * per_expert \
+            * cfg.num_layers
         n = n - inactive
     return 6.0 * n

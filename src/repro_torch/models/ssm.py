@@ -1,8 +1,13 @@
-"""Recurrent blocks: xLSTM (mLSTM + sLSTM) and the RG-LRU of RecurrentGemma /
-Griffin (train, prefill and the O(1)-state decode step).
+"""Recurrent blocks: xLSTM (mLSTM + sLSTM), the RG-LRU of RecurrentGemma /
+Griffin and the Mamba-2 mixer of granite 4.0-H (train, prefill and the
+O(1)-state decode step).
 
-All three follow the reference (``repro/models/ssm.py``), not the published
-models: the same parameter keys, shapes and arithmetic order.
+The first three follow the reference (``repro/models/ssm.py``), not the
+published models: the same parameter keys, shapes and arithmetic order.
+Mamba-2 has no counterpart there; it follows the published layer
+(Mamba-2, arXiv:2405.21060; granite 4.0-H's ``GraniteMoeHybridMambaLayer``)
+and is held to the benchmark's plain reference
+(``portbench/reference/granite_hybrid.py``).
 
 * mLSTM — matrix-memory LSTM (arXiv:2405.04517 eq. 19-27).  Up to
   ``MLSTM_CHUNK`` steps the stabilised quadratic parallel form runs; above
@@ -37,9 +42,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rglru_scan import rglru_scan
-from repro_torch.models.layers import dense, init_dense, normal
+from repro_torch.models.layers import dense, init_dense, normal, rms_norm
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -416,3 +422,170 @@ def apply_rglru(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
         new_state = RGLRUState(h=h[:, -1], conv=upad[:, -(_CONV_WIDTH - 1):])
     out = h.to(x.dtype)
     return dense(out * gate, params["out"]), new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (granite 4.0-H; arXiv:2405.21060)
+# ---------------------------------------------------------------------------
+
+
+class Mamba2State(NamedTuple):
+    conv: torch.Tensor    # (B, conv_dim, conv - 1) inputs before the conv
+    ssm: torch.Tensor     # (B, H, P, N) state of every head, float32
+
+
+def init_mamba2_params(gen, cfg: ArchConfig, dtype=torch.float32,
+                       device="cpu"):
+    """``in_proj`` (d, [z | x B C | dt]), the depthwise causal ``conv``
+    (taps, conv_dim) and its bias, per-head ``dt_bias``, ``A_log`` and
+    skip ``D``, the gated norm's scale and ``out_proj`` (inner, d).
+    Decays as Mamba-2 draws them: dt log-uniform in [1e-3, 1e-1] (its
+    ``dt_bias`` the inverse softplus of that), A uniform in [1, 16]."""
+    d, h = cfg.d_model, cfg.mamba_heads
+    inner, conv_dim = cfg.mamba_inner, cfg.mamba_conv_dim
+    lo, hi = np.log(1e-3), np.log(1e-1)
+    dt = torch.exp(_uniform(gen, (h,), lo, hi, device))
+    return {
+        "in_proj": init_dense(gen, d, inner + conv_dim + h, dtype, device),
+        "conv": normal(gen, (cfg.mamba_conv, conv_dim),
+                       cfg.mamba_conv ** -0.5, dtype, device),
+        "conv_bias": torch.zeros((conv_dim,), dtype=dtype, device=device),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),
+        "A_log": torch.log(_uniform(gen, (h,), 1.0, 16.0, device)),
+        "D": torch.ones((h,), dtype=torch.float32, device=device),
+        "norm": torch.zeros((inner,), dtype=dtype, device=device),
+        "out_proj": init_dense(gen, inner, d, dtype, device),
+    }
+
+
+def init_mamba2_state(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                      device="cpu") -> Mamba2State:
+    return Mamba2State(
+        conv=torch.zeros((batch, cfg.mamba_conv_dim, cfg.mamba_conv - 1),
+                         dtype=dtype, device=device),
+        ssm=torch.zeros((batch, cfg.mamba_heads, cfg.mamba_head_dim,
+                         cfg.mamba_d_state), dtype=torch.float32,
+                        device=device))
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int,
+                initial: Optional[torch.Tensor] = None):
+    """The state-space dual (SSD) scan by chunks: per head h,
+    ``S_t = exp(dt_t A_h) S_{t-1} + dt_t x_t B_t^T`` and ``y_t = S_t C_t``.
+
+    x: (b, T, H, P); dt: (b, T, H); A: (H,); B, C: (b, T, G, N) (head h
+    reads group h // (H / G)); ``initial``: (b, H, P, N) or zeros.  Returns
+    y (b, T, H, P) and the last state (b, H, P, N), float32.  T is padded
+    to whole chunks with dt = 0 steps, which leave the state as it is.
+
+    Inside a chunk the output is the quadratic form ``(L o C B^T)(dt x)``
+    with ``L[i, j] = exp(a_i - a_j)`` (j <= i) from the chunk's cumulative
+    ``a = cumsum(dt A)``; each chunk's state passes on to the next through
+    ``exp(a_last)``.  The cumulative sums and their differences are taken
+    in float64, where a long chunk's sum would cancel in float32.
+    """
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    r = h // g
+    pad = (-t) % chunk
+    if pad:
+        x, dt, B, C = (F.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
+                       for v in (x, dt, B, C))
+    c = (t + pad) // chunk
+    x = x.float().reshape(b, c, chunk, g, r, p)
+    dt = dt.float().reshape(b, c, chunk, g, r)
+    B = B.float().reshape(b, c, chunk, g, n)
+    C = C.float().reshape(b, c, chunk, g, n)
+    acum = torch.cumsum(dt.double() * A.double().reshape(g, r), dim=2)
+    a = acum.permute(0, 1, 3, 4, 2)                         # (b,c,g,r,Q)
+    causal = _causal(chunk, x.device)
+    seg = torch.where(causal, a[..., :, None] - a[..., None, :],
+                      -np.inf).float()
+    L = torch.exp(seg)                                      # (b,c,g,r,Q,Q)
+    xdt = x * dt[..., None]                                 # (b,c,Q,g,r,p)
+
+    # within each chunk: (L o C B^T) (dt x)
+    cb = torch.einsum("bcign,bcjgn->bcgij", C, B)
+    y = torch.einsum("bcgrij,bcjgrp->bcigrp", cb[:, :, :, None] * L, xdt)
+
+    # each chunk's own contribution to its last state, then the states
+    # passed from chunk to chunk
+    to_end = torch.exp((acum[:, :, -1:] - acum).float())    # (b,c,Q,g,r)
+    states = torch.einsum("bcjgn,bcjgr,bcjgrp->bcgrpn", B, to_end, xdt)
+    through = torch.exp(acum[:, :, -1].float())             # (b,c,g,r)
+    s = torch.zeros((b, g, r, p, n), dtype=torch.float32, device=x.device) \
+        if initial is None else initial.float().reshape(b, g, r, p, n)
+    before = []
+    for i in range(c):
+        before.append(s)
+        s = through[:, i, ..., None, None] * s + states[:, i]
+    before = torch.stack(before, dim=1)                     # (b,c,g,r,p,n)
+
+    # the state a chunk starts from, decayed to each of its steps
+    y = y + torch.einsum("bcign,bcgrpn,bcigr->bcigrp", C, before,
+                         torch.exp(acum.float()))
+    y = y.reshape(b, c * chunk, h, p)[:, :t]
+    return y, s.reshape(b, h, p, n)
+
+
+def ssd_step(x, dt, A, B, C, state: torch.Tensor):
+    """One step of the recurrence.  x: (b, H, P); dt: (b, H); B, C:
+    (b, G, N); state: (b, H, P, N) → (y (b, H, P), next state)."""
+    r = x.shape[1] // B.shape[1]
+    Bh = B.float().repeat_interleave(r, dim=1)              # (b, H, N)
+    Ch = C.float().repeat_interleave(r, dim=1)
+    decay = torch.exp(dt.float() * A.float())               # (b, H)
+    s = decay[..., None, None] * state \
+        + (dt.float()[..., None] * x.float())[..., None] * Bh[:, :, None]
+    return torch.einsum("bhpn,bhn->bhp", s, Ch), s
+
+
+def apply_mamba2(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+                 state: Optional[Mamba2State] = None
+                 ) -> Tuple[torch.Tensor, Optional[Mamba2State]]:
+    """The Mamba-2 mixer: ``[z | xBC | dt] = x W_in``; ``xBC =
+    silu(conv(xBC) + b)`` split into x (H heads of P), B and C (G groups
+    of N); ``dt = softplus(dt + dt_bias)``, ``A = -exp(A_log)``; the SSD
+    scan (train / prefill: ``ssd_chunked`` at ``cfg.mamba_chunk``; decode:
+    ``ssd_step``) plus ``D x``; then ``rms(y silu(z)) W_out``.  Returns
+    (output (B, T, d_model), the prefill / decode state or None)."""
+    b, t, _ = x.shape
+    _check_step(mode, state, t)
+    h, p = cfg.mamba_heads, cfg.mamba_head_dim
+    gn = cfg.mamba_groups * cfg.mamba_d_state
+    inner, conv_dim, k = cfg.mamba_inner, cfg.mamba_conv_dim, cfg.mamba_conv
+    with tracing.span("mamba.mixer"):
+        z, xbc, dt = torch.split(dense(x, params["in_proj"]),
+                                 [inner, conv_dim, h], dim=-1)
+        w = params["conv"].to(xbc.dtype)
+        if mode == "decode":
+            hist = torch.cat([state.conv, xbc.transpose(1, 2)], dim=-1)
+            # a Python sum from 0, in tap order, as the prefill's
+            conv = sum(hist[..., i] * w[i] for i in range(k))[:, None]
+            new_conv = hist[..., 1:]
+        else:
+            upad = F.pad(xbc, (0, 0, k - 1, 0))
+            conv = sum(upad[:, i:i + t] * w[i] for i in range(k))
+            new_conv = upad[:, t:].transpose(1, 2)
+        xbc = F.silu(conv + params["conv_bias"].to(xbc.dtype))
+        xs, B, C = torch.split(xbc, [inner, gn, gn], dim=-1)
+        xs = xs.reshape(b, t, h, p)
+        B = B.reshape(b, t, cfg.mamba_groups, cfg.mamba_d_state)
+        C = C.reshape(b, t, cfg.mamba_groups, cfg.mamba_d_state)
+        dt = _softplus(dt.float() + params["dt_bias"].float())
+        A = -torch.exp(params["A_log"].float())
+        if mode == "decode":
+            y, s = ssd_step(xs[:, 0], dt[:, 0], A, B[:, 0], C[:, 0],
+                            state.ssm)
+            y = y[:, None]
+        else:
+            with tracing.span("mamba.scan"):
+                y, s = ssd_chunked(xs, dt, A, B, C, cfg.mamba_chunk)
+        y = y + xs.float() * params["D"].float()[:, None]
+        y = y.to(x.dtype).reshape(b, t, inner)
+        y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+        out = dense(y, params["out_proj"])
+    tracing.backward_span("mamba.backward", x, (out,))
+    new_state = Mamba2State(conv=new_conv, ssm=s) \
+        if mode in ("prefill", "decode") else None
+    return out, new_state

@@ -181,6 +181,79 @@ def test_kept_share_counts_the_routed_keep(tmp_path, monkeypatch):
     assert tracing.counters() == {}
 
 
+def _hybrid_cfg():
+    """Two Mamba-2 layers of granite-4.0-h-small (4 sched layers, as
+    ``PLAN``), experts 2-3 of 8 held, chunk 8 over T = 16."""
+    return dataclasses.replace(
+        _cfg("granite-4.0-h-small"), num_experts=8, top_k=2,
+        experts_first=2, experts_held=2, mamba_chunk=8)
+
+
+def test_mamba_spans_mixer_scan_and_backward(tmp_path):
+    """Each Mamba-2 layer opens ``mamba.mixer`` twice a step (the forward,
+    inside ``zero.forward``, and the recompute, inside ``zero.backward``),
+    with one ``mamba.scan`` inside each; its backward is one
+    ``mamba.backward`` span inside ``zero.backward``."""
+    cfg = _hybrid_cfg()
+    assert cfg.layer_kinds() == ("mamba2", "mamba2")
+    tr = _trainer(cfg)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    _, spans, _ = _traced(lambda: tr.step(state, _batch(cfg)), tmp_path)
+    tracing.reset_counters()
+    counts = _counts(spans)
+    assert (counts["mamba.mixer"], counts["mamba.scan"],
+            counts["mamba.backward"]) == (4, 4, 2)
+    mixers = _named(spans, "mamba.mixer")
+    assert all(_inside(s, mixers) for s in _named(spans, "mamba.scan"))
+    fwd, bwd = _named(spans, "zero.forward"), _named(spans, "zero.backward")
+    assert sum(_inside(m, fwd) for m in mixers) == 2
+    assert sum(_inside(m, bwd) for m in mixers) == 2
+    assert all(_inside(b, bwd) for b in _named(spans, "mamba.backward"))
+
+
+def test_held_share_counts_the_routed_assignments(tmp_path):
+    """Under the profiler a step of a model holding 2 of 8 experts counts
+    every assignment in ``moe.routed`` (N k a routing, twice a layer) and
+    those to its experts in ``moe.assignments``."""
+    cfg = _hybrid_cfg()
+    tr = _trainer(cfg)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    tracing.reset_counters()
+    _traced(lambda: tr.step(state, _batch(cfg)), tmp_path)
+    c = tracing.counters()
+    tracing.reset_counters()
+    assert c["moe.routed"] == 2 * cfg.num_layers * 2 * 16 * cfg.top_k
+    assert 0 < c["moe.kept"] <= c["moe.assignments"] < c["moe.routed"]
+
+
+def test_without_a_profiler_no_mamba_span_is_entered(monkeypatch):
+    """A ZeRO step of the hybrid with no profiler: ``record_function`` is
+    never built, no backward hook is registered and no counter holds a
+    value."""
+    entered = []
+
+    class Counting:
+        def __init__(self, name):
+            entered.append(name)
+
+    monkeypatch.setattr(tracing, "record_function", Counting)
+    tracing.reset_counters()
+    cfg = _hybrid_cfg()
+    _two_steps(_trainer(cfg), cfg)
+    assert entered == []
+    assert tracing.counters() == {}
+
+
+def test_tracing_changes_no_bit_of_the_hybrids_training(tmp_path):
+    cfg = _hybrid_cfg()
+    plain, plain_losses = _two_steps(_trainer(cfg), cfg)
+    (traced, traced_losses), _, _ = _traced(
+        lambda: _two_steps(_trainer(cfg), cfg), tmp_path)
+    tracing.reset_counters()
+    assert _equal(plain_losses, traced_losses)
+    assert _equal(plain["flat_params"], traced["flat_params"])
+
+
 # ---------------------------------------------------------------------------
 # the run-time loop and the decode
 # ---------------------------------------------------------------------------
