@@ -1,22 +1,25 @@
 """The granite 4.0-H family (``families/granite_hybrid.py``) on the CPU:
 its leaves against the port's parameters, the counts by hand, the four
 readers of its metrics on a trace made by hand, its cells resolved and
-run at test size, and the check failing a broken step."""
+run at test size, the check failing a broken step and the reference on
+half of each sequence, and a run of both cells without JAX."""
 
 import json
+import subprocess
+import sys
 import types
 
 import pytest
 import torch
 
-from portbench import control
+from portbench import control, half_sequence as half_sequence_fault
 from portbench.counts import granite_hybrid_flops, mamba2_ssd
 from portbench.counts.model_flops import causal_pairs
 from portbench.families import granite_hybrid as family
-from portbench.harness import cell as cells, weights
+from portbench.harness import cell as cells, checks, weights
 from portbench.harness.runner import Record
 from portbench.harness.trace import Trace
-from portbench.tests import helpers
+from portbench.tests import helpers, test_portbench_hygiene as hygiene
 from portbench.tests.test_portbench_faults import (half_batch, no_exchange,
                                                    unchanged_step)
 
@@ -178,9 +181,13 @@ def test_both_cells_resolve_with_their_metrics():
     assert (p.kind, p.traffic["prompt_lengths"]) == ("serve", [4088])
     assert {m["name"] for m in p.end_to_end} == {
         "serve_tokens_per_s", "itl_ms_p95", "setup_s"}
+    assert "moe.dispatch_ms.train" in h.readers
     assert set(p.readers) == {"serve.prefill_ms_per_ktok",
                               "flash_attention_roofline.serve", "serve.mfu",
-                              "device.idle_share.serve"}
+                              "device.idle_share.serve",
+                              "serve.decode_device_ms",
+                              "serve.decode_host_ms",
+                              "serve.host_launches_per_token"}
 
 
 @pytest.fixture
@@ -195,7 +202,20 @@ def test_a_sound_run_is_correct(tiny, workload, traced):
     assert line["correct"] is True, line["checks"]
 
 
-@pytest.mark.parametrize("fault", [unchanged_step, half_batch, no_exchange],
+def half_sequence(monkeypatch):
+    """The step trains on the first half of each sequence: the half batch
+    of a batch of one sequence."""
+    from repro_torch.dist import zero
+    local = zero.ZeroTrainer._local_batch
+
+    def first_half(self, batch):
+        out = local(self, batch)
+        return {k: v[:, :v.shape[1] // 2] for k, v in out.items()}
+    monkeypatch.setattr(zero.ZeroTrainer, "_local_batch", first_half)
+
+
+@pytest.mark.parametrize("fault", [unchanged_step, half_batch, no_exchange,
+                                   half_sequence],
                          ids=lambda f: f.__name__)
 def test_a_broken_hybrid_step_is_not_correct(tiny, monkeypatch, fault):
     fault(monkeypatch)
@@ -209,3 +229,39 @@ def test_the_control_fails_the_hybrids_limits(tiny):
     for seed in (2 ** 31 + 1, 2 ** 31 + 2):
         numbers = control.readings(cell, seed, "tf32", torch.device("cpu"))
         assert any(numbers[k] > v for k, v in cell.limits.items()), numbers
+
+
+def test_the_half_sequence_reference_fails_every_limit(tiny):
+    """``half_sequence.py``'s reading at test size: the reference on the
+    first half of each sequence fails each of the cell's limits."""
+    bench, root = tiny
+    cell = cells.resolve(bench, HYBRID, root)
+    for seed in (2 ** 31 + 1, 2 ** 31 + 2):
+        numbers = half_sequence_fault.readings(cell, seed,
+                                               torch.device("cpu"))
+        ok, checked = checks.verdict(numbers, cell.limits)
+        assert all(c["value"] > c["limit"] for c in checked.values()), \
+            checked
+
+
+def test_a_hybrid_run_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """Both new cells at test size, in a process of its own, with the
+    test-size file of the new configuration entered there as this
+    directory's conftest enters it."""
+    code = f"""
+import sys
+sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]
+from portbench.tests import helpers, test_portbench_hygiene as hygiene
+helpers.TINY.setdefault("granite-4.0-h-small", "granite-hybrid-tiny")
+bench, root = helpers.tiny_root({str(tmp_path)!r})
+for w in ({HYBRID!r}, {PREFILL!r}):
+    line, _ = helpers.run(bench, root, w, seconds=0.2)
+    assert line["correct"], line
+found = sorted(m for m in sys.modules
+               if m.split(".")[0] in {sorted(hygiene.FORBIDDEN)!r})
+print("FOUND", found)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOUND []" in out.stdout, out.stdout[-2000:]

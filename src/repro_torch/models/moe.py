@@ -90,7 +90,6 @@ def route(probs: torch.Tensor, cfg: ArchConfig, cap: int) -> Routing:
     assignment's position inside its expert in assignment-major order; the
     dispatch rows are the held experts' (``E' x cap``)."""
     e, k = cfg.num_experts, cfg.top_k
-    whole = cfg.num_held_experts == e
     with tracing.span("moe.route"):
         top_p, top_e = torch.sort(probs, dim=-1, descending=True,
                                   stable=True)
@@ -100,19 +99,13 @@ def route(probs: torch.Tensor, cfg: ArchConfig, cap: int) -> Routing:
         onehot = F.one_hot(flat_e, e)                           # (N·k, E)
         pos_in_e = torch.cumsum(onehot, dim=0) - onehot         # exclusive
         pos = (pos_in_e * onehot).sum(dim=1)                    # (N·k,)
-        keep = pos < cap
-        if whole:
-            held, local = None, flat_e
-        else:
-            local = flat_e - cfg.experts_first
-            held = (local >= 0) & (local < cfg.num_held_experts)
-            keep = keep & held
-            local = torch.where(held, local, 0)
-        slot = local * cap + torch.where(keep, pos, 0)
+        local = flat_e - cfg.experts_first
+        held = (local >= 0) & (local < cfg.num_held_experts)
+        keep = (pos < cap) & held
+        slot = torch.where(held, local, 0) * cap + torch.where(keep, pos, 0)
     if tracing.recording():
         tracing.count("moe.routed", keep.numel())
-        tracing.count("moe.assignments",
-                      keep.numel() if held is None else held.sum())
+        tracing.count("moe.assignments", held.sum())
         tracing.count("moe.kept", keep.sum())
     return Routing(top_p, top_e, slot, keep)
 
