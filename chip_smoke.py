@@ -11,9 +11,9 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    times beside the least time the card could take (flash at both paths'
    head dims, 64 and 256, as two records; pack and unpack in turns with
    ``torch.cat`` / ``split_with_sizes_copy``, sparsify with
-   ``torch.gather``), the RG-LRU scan forward and its fused backward, and
-   pack / unpack on 1,200 pieces under
-   ``torch.cuda.set_sync_debug_mode("error")``;
+   ``torch.gather``), the RG-LRU scan forward and its fused backward, the
+   MoE position kernel at the MoE cells' shapes, and pack / unpack on
+   1,200 pieces under ``torch.cuda.set_sync_debug_mode("error")``;
 3. ``main``: 3 ZeRO steps of full-width granite-3-2b under the DynaComm
    plan, with the kernels' launches in those steps asserted against the
    plan;
@@ -95,11 +95,11 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    step's gradients against autograd of ``train_loss``, each leaf within
    4e-6 of its own largest magnitude, and the router's gradient moved at
    ``aux_weight = 0``); ``pipeline`` (S = 2, M = 2,
-   1f1b, 3 steps: partition, ledger, flash launches and no other kernel,
-   no collective, peak, losses against S = 1, M = 2 to rtol 1e-5; gpipe
-   against 1f1b bitwise at 4 blocks); then a reduced MoE that drops
-   tokens under ``zero.json`` and ``pipeline.json`` on the card against
-   the port on the CPU;
+   1f1b, 3 steps: partition, ledger, flash and MoE position launches and
+   no other kernel, no collective, peak, losses against S = 1, M = 2 to
+   rtol 1e-5; gpipe against 1f1b bitwise at 4 blocks); then a reduced MoE
+   that drops tokens under ``zero.json`` and ``pipeline.json`` on the card
+   against the port on the CPU;
 11. ``families``: the last model families at their published widths.
    xlstm-350m (24 layers: 21 mLSTM, 3 sLSTM; d_model 1024, 4 heads, the
    mLSTM's head dim 512, vocab 50304, tied head): the mLSTM's parallel
@@ -1136,6 +1136,55 @@ def check_rglru(gen, dev) -> dict:
     return {"rglru_scan": fwd, "rglru_scan_bwd": bwd}
 
 
+# the MoE cells' routings: (architecture, tokens a step, experts held)
+MOE_POSITION_SHAPES = {
+    "moe_positions@moe": ("granite-moe-1b-a400m", 2048, 32),
+    "moe_positions@hybrid": ("granite-4.0-h-small", 4096, 8)}
+
+
+def check_moe_positions(gen, dev) -> dict:
+    """The MoE position kernel at the MoE cells' shapes (granite-moe's
+    (16,384, E = 32), granite-4.0-h-small's (40,960, E = 72) with experts
+    0-7 held), on the top k of uniform scores: bitwise its plain version
+    (the one-hot cumulative sum), then both timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_positions import ops, ref
+    from repro_torch.models.moe import expert_capacity
+    records = {}
+    for name, (arch, tokens, held) in MOE_POSITION_SHAPES.items():
+        cfg = get_config(arch)
+        e, k = cfg.num_experts, cfg.top_k
+        cap = expert_capacity(tokens, cfg)
+        scores = torch.rand(tokens, e, generator=gen, device=dev)
+        flat_e = torch.sort(scores, dim=-1, descending=True,
+                            stable=True)[1][:, :k].reshape(-1)
+
+        def kernel():
+            return ops.moe_positions(flat_e, e, 0, held, cap)
+
+        def plain():
+            return ref.moe_positions_ref(flat_e, e, 0, held, cap)
+        for mine, want, what in zip(kernel(), plain(), ("slot", "keep")):
+            if not torch.equal(mine, want):
+                raise AssertionError(f"{name}: {what} differs from the "
+                                     f"plain version")
+        warm_up(kernel)
+        ks = [cuda_ms(kernel, 50) for _ in range(8)]
+        n = flat_e.numel()
+        rec = dict(max_abs_err=0.0, ms=sum(ks) / len(ks),
+                   ms_range=[min(ks), max(ks)],
+                   plain_ms=cuda_ms(plain, 5, ahead=False), library_ms=None,
+                   bound_ms=17 * n / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        records[name] = rec
+        say("kernels", f"{name} at ({n:,}, E = {e}), experts 0-{held - 1} "
+                       f"held, cap {cap}: bitwise the plain version; "
+                       f"{rec['ms'] * 1e3:.2f} us [{min(ks) * 1e3:.2f}-"
+                       f"{max(ks) * 1e3:.2f}] against the plain "
+                       f"{rec['plain_ms']:.4f} ms and the byte bound "
+                       f"{rec['bound_ms'] * 1e3:.3f} us")
+    return records
+
+
 def phase_kernels(arch, plan, specs) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1149,6 +1198,7 @@ def phase_kernels(arch, plan, specs) -> dict:
     free_cuda()
     records.update(check_rglru(gen, dev))
     free_cuda()
+    records.update(check_moe_positions(gen, dev))
     for name, r in records.items():
         lib = r["library_ms"]
         say("kernels", f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
@@ -1211,7 +1261,8 @@ def expected_launches(plan, arch, compress, steps: int = STEPS) -> dict:
     """Kernel launches over ``steps`` steps of a plan: one pack per bucket,
     one unpack per pull bucket, the flash forward twice per attention
     block (forward and recompute), the RG-LRU scan twice per RG-LRU block
-    (forward and recompute) and its fused backward once, and one launch of
+    (forward and recompute) and its fused backward once, the MoE position
+    kernel twice per MoE block (forward and recompute), and one launch of
     each ``compress`` kernel per sched layer."""
     kinds = arch.layer_kinds()
     per_step = {"bucket_pack": len(plan.forward) + len(plan.backward),
@@ -1219,7 +1270,8 @@ def expected_launches(plan, arch, compress, steps: int = STEPS) -> dict:
                 "flash_attention_fwd": 2 * sum(
                     k in ("global_attn", "local_attn") for k in kinds),
                 "rglru_scan": 2 * kinds.count("rglru"),
-                "rglru_scan_bwd": kinds.count("rglru")}
+                "rglru_scan_bwd": kinds.count("rglru"),
+                "moe_positions": 2 * len(kinds) if arch.is_moe else 0}
     layers = sum(len(b) for b in plan.backward)
     for name in PS_SCHEMES[0][1] + PS_SCHEMES[1][1]:
         per_step[name] = layers if name in compress else 0
@@ -2498,8 +2550,9 @@ def pipeline_witness(arch, dev) -> None:
 def run_pipeline_path(config, segments, phase: str) -> dict:
     """Build ``config``'s pipeline on the card and run STEPS steps: the
     partition against ``segments``, flash 3 times an attention block and
-    micro-batch (the forward, the stage's recompute, the VJP's recompute)
-    and no other kernel, no collective and no process group, the ledger
+    micro-batch (the forward, the stage's recompute, the VJP's recompute),
+    on an MoE the position kernel 3 times a block and micro-batch, and no
+    other kernel, no collective and no process group, the ledger
     against its formula, finite losses, and the peak against 4 copies of
     the parameters (parameters, mu, nu, gradient accumulators) +
     PIPELINE_ACTIVATION_GIB + 1 GiB."""
@@ -2537,9 +2590,13 @@ def run_pipeline_path(config, segments, phase: str) -> dict:
     attn = sum(k in ("global_attn", "local_attn")
                for k in arch.layer_kinds())
     flash = 3 * attn * tr.num_microbatches * STEPS
-    if counts.pop("flash_attention_fwd") != flash or any(counts.values()):
+    routes = 3 * arch.num_layers * tr.num_microbatches * STEPS \
+        if arch.is_moe else 0
+    if counts.pop("flash_attention_fwd") != flash or \
+            counts.pop("moe_positions") != routes or any(counts.values()):
         raise AssertionError(f"{phase}: launches {launch_counts()}, want "
-                             f"flash {flash} and nothing else")
+                             f"flash {flash}, moe_positions {routes} and "
+                             f"nothing else")
     led, want = rt.ledger, pipeline_ledger_formula(tr, STEPS)
     if {k: led[k] for k in want} != want or \
             led["boundary_pull_bytes"].keys() != {0, -1}:
@@ -2558,8 +2615,8 @@ def run_pipeline_path(config, segments, phase: str) -> dict:
                f"process group")
     say(phase, f"launches: flash {flash} == 3 x {attn} attention blocks x "
                f"{tr.num_microbatches} micro-batches x {STEPS} steps (the "
-               f"forward, the stage's recompute, the VJP's recompute); no "
-               f"other kernel of csrc/")
+               f"forward, the stage's recompute, the VJP's recompute); "
+               f"moe_positions {routes}; no other kernel of csrc/")
     steady = sum(secs[1:]) / len(secs[1:])
     tokens = config.batch * config.seq
     say(phase, f"step seconds {[round(x, 4) for x in secs]}: first "
@@ -3272,14 +3329,18 @@ def serve_through_the_launcher(name: str, smi: str, shape=None,
                                phase: str = "serve") -> tuple:
     """``repro_torch.launch.serve`` on ``name`` at full width, greedy: the
     kernels' launches counted after the prefill and after the decode (none
-    may come from the decode), the cache bytes against the reckoning,
-    prefill ms, decode ms a token, tokens/s and peak.  Then the
+    may come from the decode but an MoE's routing), the cache bytes
+    against the reckoning, prefill ms, decode ms a token, tokens/s and
+    peak.  Then the
     full-forward check: one ``forward`` over prompt + served tokens gives
     every decoded position's logits within the stated bound, and its
     greedy token wherever its top-2 margin exceeds twice that bound (MoE at
     capacity factor E / k: no token can drop).  Returns the prefill's
     launches and the run.  ``shape`` = (requests, prompt, tokens) is
-    ``SERVE[name]``'s unless given; ``phase`` tags the lines."""
+    ``SERVE[name]``'s unless given; ``phase`` tags the lines.  An MoE
+    routes every decoded token on the card: its position kernel is the one
+    kernel the decode may launch (once a block in each step that runs
+    eagerly or captures; a replayed graph launches through the graph)."""
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import serve as launcher
     from repro_torch.models import model
@@ -3299,13 +3360,19 @@ def serve_through_the_launcher(name: str, smi: str, shape=None,
     cfg = run["cfg"]
     kinds = cfg.layer_kinds()
     want = {"flash_attention_fwd": sum(x.endswith("attn") for x in kinds),
-            "rglru_scan": kinds.count("rglru")}
+            "rglru_scan": kinds.count("rglru"),
+            "moe_positions": len(kinds) if cfg.is_moe else 0}
     for kernel, n in after.items():
         if counts[kernel] != want.get(kernel, 0):
             raise AssertionError(f"{name} prefill: {kernel} launched "
                                  f"{counts[kernel]} times, expected "
                                  f"{want.get(kernel, 0)}")
-        if n != counts[kernel]:
+        if kernel == "moe_positions" and cfg.is_moe:
+            if (n - counts[kernel]) % len(kinds):
+                raise AssertionError(f"{name} decode launched {kernel} "
+                                     f"{n - counts[kernel]} times, not a "
+                                     f"whole number of steps")
+        elif n != counts[kernel]:
             raise AssertionError(f"{name} decode launched {kernel} "
                                  f"{n - counts[kernel]} times")
     prefill_launches = {x: counts[x] for x in want}
@@ -3323,7 +3390,8 @@ def serve_through_the_launcher(name: str, smi: str, shape=None,
                f"{run['cache_bytes']:,} B = the reckoning (KV "
                f"{reckon['kv']:,}, states {reckon['state']:,}, pos "
                f"{reckon['pos']}); prefill launches {prefill_launches}, "
-               f"none in decode; {smi}")
+               f"{'only the routing' if cfg.is_moe else 'none'} in decode; "
+               f"{smi}")
 
     check, tokens = cfg, run["tokens"]
     if cfg.is_moe:

@@ -12,6 +12,9 @@ are built at first use by :mod:`repro_torch.kernels._build`.
   the compressed gradient push of the ``ps`` runtime.
 * ``rglru_scan`` — the RG-LRU linear recurrence of recurrentgemma's
   recurrent blocks, forward (or reverse) and its fused backward.
+* ``moe_positions`` — each MoE assignment's position inside its expert, and
+  the dispatch slot and keep flag after it (no TPU kernel: XLA fuses the
+  reference's one-hot cumulative sum).
 """
 
 from typing import Dict
@@ -19,10 +22,11 @@ from typing import Dict
 from repro_torch.kernels.bucket_pack import ops as _bucket_ops
 from repro_torch.kernels.compress import ops as _compress_ops
 from repro_torch.kernels.flash_attention import ops as _flash_ops
+from repro_torch.kernels.moe_positions import ops as _moe_ops
 from repro_torch.kernels.rglru_scan import ops as _rglru_ops
 
 _COUNTERS = (_bucket_ops.LAUNCHES, _flash_ops.LAUNCHES,
-             _compress_ops.LAUNCHES, _rglru_ops.LAUNCHES)
+             _compress_ops.LAUNCHES, _rglru_ops.LAUNCHES, _moe_ops.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -22,7 +22,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("bucket_pack", "compress", "flash_attention", "rglru_scan")
+SOURCES = ("bucket_pack", "compress", "flash_attention", "rglru_scan",
+           "moe_positions")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

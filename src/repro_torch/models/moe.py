@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN with capacity-bounded scatter dispatch.
 
-Top-k routing → position-in-expert via cumulative counts → scatter tokens
+Top-k routing → position-in-expert (``kernels.moe_positions``: a CUDA
+kernel on the card, the one-hot cumulative count elsewhere) → scatter tokens
 into an ``(E·C, d)`` dispatch buffer → batched per-expert (gated) FFN →
 gather + weighted combine, step for step as the reference's
 ``repro.models.moe``.  Tokens beyond an expert's capacity are dropped
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.moe_positions import moe_positions
 from repro_torch.models.layers import activation_fn, dense, init_dense
 
 
@@ -96,14 +98,11 @@ def route(probs: torch.Tensor, cfg: ArchConfig, cap: int) -> Routing:
         top_p, top_e = top_p[:, :k], top_e[:, :k]
         top_p = top_p / top_p.sum(dim=-1, keepdim=True)
         flat_e = top_e.reshape(-1)                              # (N·k,)
-        onehot = F.one_hot(flat_e, e)                           # (N·k, E)
-        pos_in_e = torch.cumsum(onehot, dim=0) - onehot         # exclusive
-        pos = (pos_in_e * onehot).sum(dim=1)                    # (N·k,)
+        slot, keep = moe_positions(flat_e, e, cfg.experts_first,
+                                   cfg.num_held_experts, cap)
+    if tracing.recording():
         local = flat_e - cfg.experts_first
         held = (local >= 0) & (local < cfg.num_held_experts)
-        keep = (pos < cap) & held
-        slot = torch.where(held, local, 0) * cap + torch.where(keep, pos, 0)
-    if tracing.recording():
         tracing.count("moe.routed", keep.numel())
         tracing.count("moe.assignments", held.sum())
         tracing.count("moe.kept", keep.sum())

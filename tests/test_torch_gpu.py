@@ -7,7 +7,8 @@ where only PyTorch is installed:
 
 Each kernel is held against its plain PyTorch version on the same card
 tensors: pack / unpack, the four compression kernels, the RG-LRU scan and
-its fused backward bitwise, flash attention at the reference's tolerances
+its fused backward and the MoE position kernel bitwise, flash attention at
+the reference's tolerances
 (atol 2e-6 in f32, 2e-2 in bf16).  The model families without a kernel of
 their own (xLSTM, the audio and vision frontends) run on the card against
 the CPU; so does reduced serving, whose decode steps and generate loop run
@@ -26,6 +27,8 @@ from repro_torch.kernels.bucket_pack import ops, ref
 from repro_torch.kernels.compress import ops as compress_ops
 from repro_torch.kernels.compress import ref as compress_ref
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.moe_positions import ops as positions_ops
+from repro_torch.kernels.moe_positions import ref as positions_ref
 from repro_torch.kernels.rglru_scan import ops as scan_ops
 from repro_torch.kernels.rglru_scan import ref as scan_ref
 
@@ -157,7 +160,7 @@ def test_zero_smoke_config_runs_through_the_kernels(cuda):
         "flash_attention_fwd": 2 * 2 * rt.arch.num_layers,
         "compress_quantize": 0, "compress_dequantize": 0,
         "compress_sparsify": 0, "compress_densify": 0, "rglru_scan": 0,
-        "rglru_scan_bwd": 0}
+        "rglru_scan_bwd": 0, "moe_positions": 0}
 
 
 def _bits(x):
@@ -415,7 +418,8 @@ def test_hybrid_smoke_config_runs_through_the_scan_kernel(cuda):
         "flash_attention_fwd": 2 * 2 * 1,
         "compress_quantize": 0, "compress_dequantize": 0,
         "compress_sparsify": 0, "compress_densify": 0,
-        "rglru_scan": 2 * 2 * 2, "rglru_scan_bwd": 2 * 2}
+        "rglru_scan": 2 * 2 * 2, "rglru_scan_bwd": 2 * 2,
+        "moe_positions": 0}
 
 
 # Card against CPU for the reduced recurrentgemma-2b zero run, 3 steps from
@@ -821,6 +825,105 @@ def test_moe_dispatch_is_bitwise_from_run_to_run(cuda):
             runs.append([out.detach(), aux.detach(), *grads])
         for a, b in zip(*runs):
             _assert_bitwise(a, b)
+
+
+def _routed(cuda, tokens, e, k, skew, seed=0):
+    """The expert ids of ``tokens`` tokens routed top-``k`` of ``e`` (each
+    token's k distinct experts, best first), from uniform scores less
+    ``skew`` times a ramp over the experts: skew > 0 crowds the low
+    experts past their capacity."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    ramp = torch.arange(e, device=cuda, dtype=torch.float32) / e
+    scores = torch.rand(tokens, e, generator=gen, device=cuda) - skew * ramp
+    return torch.sort(scores, dim=-1, descending=True,
+                      stable=True)[1][:, :k].reshape(-1)
+
+
+def _position_case(case, cuda):
+    """``(flat_e, E, first, held, cap)`` of a case: the MoE cells' shapes
+    at their capacities, grok's E = 8, a decode step, a length past a
+    whole tile, every assignment on one expert, a capacity above every
+    count."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    def at(name, tokens, first=0, held=None, skew=1.0):
+        cfg = get_config(name)
+        e, k = cfg.num_experts, cfg.top_k
+        return (_routed(cuda, tokens, e, k, skew), e, first,
+                e if held is None else held,
+                moe.expert_capacity(tokens, cfg))
+    if case == "one-expert":
+        return torch.full((5000,), 3, dtype=torch.int64, device=cuda), \
+            8, 0, 8, 100
+    if case == "cap-above-every-count":
+        flat_e, e, first, held, _ = at("granite-moe-1b-a400m", 2048)
+        return flat_e, e, first, held, flat_e.numel() + 1
+    return {"granite-moe-1b-a400m": lambda: at("granite-moe-1b-a400m", 2048),
+            "granite-4.0-h-small": lambda: at("granite-4.0-h-small", 4096,
+                                              held=8),
+            "grok-1-314b": lambda: at("grok-1-314b", 2048),
+            "decode": lambda: at("granite-moe-1b-a400m", 8, skew=0.0),
+            "ragged": lambda: at("granite-moe-1b-a400m", 1025, first=5,
+                                 held=20)}[case]()
+
+
+@pytest.mark.parametrize("case", [
+    "granite-moe-1b-a400m",      # cell B: (16,384, E = 32)
+    "granite-4.0-h-small",       # cell E: (40,960, E = 72), 0-7 held
+    "grok-1-314b", "decode", "ragged", "one-expert",
+    "cap-above-every-count"])
+def test_moe_positions_bitwise_vs_plain(cuda, case):
+    """One launch, whose slot and keep equal the one-hot cumulative sum's
+    bitwise."""
+    flat_e, e, first, held, cap = _position_case(case, cuda)
+    before = launch_counts()["moe_positions"]
+    slot, keep = positions_ops.moe_positions(flat_e, e, first, held, cap)
+    assert launch_counts()["moe_positions"] == before + 1
+    want_slot, want_keep = positions_ref.moe_positions_ref(flat_e, e, first,
+                                                           held, cap)
+    assert slot.dtype == torch.int64 and keep.dtype == torch.bool
+    assert torch.equal(slot, want_slot) and torch.equal(keep, want_keep)
+    if case in ("granite-moe-1b-a400m", "granite-4.0-h-small", "ragged"):
+        assert keep.any() and not keep.all()     # kept and dropped alike
+    if case == "one-expert":
+        assert int(keep.sum()) == cap
+    if case == "cap-above-every-count":
+        assert keep.all()
+
+
+def test_route_on_the_card_launches_the_position_kernel_once(cuda):
+    """``route`` on a CUDA tensor: one launch, the CPU's integers."""
+    from repro_torch.models import moe
+    cfg = _moe_config()
+    probs = torch.softmax(torch.randn(
+        256, cfg.num_experts, generator=torch.Generator().manual_seed(0)),
+        dim=-1)
+    cap = moe.expert_capacity(256, cfg)
+    before = launch_counts()["moe_positions"]
+    got = moe.route(probs.to(cuda), cfg, cap)
+    assert launch_counts()["moe_positions"] == before + 1
+    want = moe.route(probs, cfg, cap)
+    assert not want.keep.all()
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_moe_zero_steps_launch_the_position_kernel_twice_a_layer(cuda):
+    """Reduced granite-moe under ``zero``, 2 steps: the position kernel
+    once a layer in the forward and once in the recompute."""
+    from repro_torch.runtime import RuntimeConfig, build_runtime
+    arch = _moe_config()
+    rt = build_runtime(RuntimeConfig(runtime="zero",
+                                     arch="granite-moe-1b-a400m",
+                                     reduced=True, batch=2, seq=64), arch)
+    reset_launch_counts()
+    try:
+        losses = rt.fit(2)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert np.all(np.isfinite(losses))
+    assert launch_counts()["moe_positions"] == 2 * 2 * arch.num_layers
 
 
 def test_moe_aux_witness_at_two_blocks(cuda):

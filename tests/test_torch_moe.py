@@ -34,6 +34,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -68,6 +69,9 @@ from repro_torch.core import costs_from_profiles, plan_from_decision
 from repro_torch.dist import collectives as coll
 from repro_torch.dist.zero import ZeroTrainer, _vjp
 from repro_torch.interop import params_from_numpy, zero_state_from_numpy
+from repro_torch.kernels import launch_counts
+from repro_torch.kernels.moe_positions import ops as positions_ops
+from repro_torch.kernels.moe_positions import ref as positions_ref
 from repro_torch.models import model, moe
 from repro_torch.models.profiles import layer_profiles
 from repro_torch.optim import adamw
@@ -231,6 +235,84 @@ def test_dropped_rows_add_exact_zeros():
     assert dropped.numel() > 0
     assert torch.isin(dropped, kept).all()
     assert (dropped % cap == 0).all()
+
+
+def _positions_counted(flat_e, first, held, cap):
+    """The position kernel's contract counted out in Python: an
+    assignment's position is the number of earlier ones to its expert."""
+    seen, slot, keep = {}, [], []
+    for e in flat_e.tolist():
+        pos = seen.get(e, 0)
+        seen[e] = pos + 1
+        local = e - first
+        kept = 0 <= local < held and pos < cap
+        slot.append(local * cap + (pos if kept else 0)
+                    if 0 <= local < held else 0)
+        keep.append(kept)
+    return torch.tensor(slot, dtype=torch.int64), torch.tensor(keep)
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_positions_ref_gives_the_routing_integers(case):
+    """``kernels/moe_positions/ref.py`` on the routing cases: the
+    reference's slot and keep with every expert held, and the contract
+    counted out with a share of the experts held."""
+    cfg, jcfg, params, x = _moe_case(case)
+    n = x.shape[0] * x.shape[1]
+    cap = moe.expert_capacity(n, cfg)
+    probs = jax.nn.softmax(jnp.asarray(x.reshape(n, -1))
+                           @ jnp.asarray(params["router"]), axis=-1)
+    top_e, slot, keep = _jnp_routing(probs, jcfg, cap)
+    flat_e = torch.from_numpy(top_e.reshape(-1).astype(np.int64))
+    e = cfg.num_experts
+    got = positions_ref.moe_positions_ref(flat_e, e, 0, e, cap)
+    np.testing.assert_array_equal(got[0].numpy(), slot)
+    np.testing.assert_array_equal(got[1].numpy(), keep)
+    for first, held in ((1, e // 2), (e - 1, 1)):
+        got = positions_ref.moe_positions_ref(flat_e, e, first, held, cap)
+        want = _positions_counted(flat_e, first, held, cap)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_positions_on_a_cpu_tensor_take_the_plain_version():
+    """The wrapper and ``route`` on CPU tensors: the plain version's
+    integers, and no launch."""
+    flat_e = torch.randint(0, 8, (3001,),
+                           generator=torch.Generator().manual_seed(0))
+    got = positions_ops.moe_positions(flat_e, 8, 2, 4, 200)
+    want = positions_ref.moe_positions_ref(flat_e, 8, 2, 4, 200)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cfg, _, params, x = _moe_case("dropping")
+    xf = torch.from_numpy(x.reshape(-1, cfg.d_model))
+    moe.route(torch.softmax(xf @ torch.from_numpy(params["router"]), -1),
+              cfg, moe.expert_capacity(xf.shape[0], cfg))
+    assert positions_ops.LAUNCHES["moe_positions"] == 0
+    assert launch_counts()["moe_positions"] == 0
+
+
+@pytest.mark.parametrize("flat_e,num_experts,match", [
+    (torch.zeros(16, dtype=torch.int32), 8, "int64"),
+    (torch.zeros((4, 4), dtype=torch.int64), 8, "shape"),
+    (torch.zeros(16, dtype=torch.int64), positions_ops.MAX_EXPERTS + 1,
+     "shared memory"),
+    (torch.zeros(16, dtype=torch.int64), 0, "experts"),
+])
+def test_positions_reject_what_the_kernel_does_not_take(flat_e, num_experts,
+                                                        match):
+    with pytest.raises(ValueError, match=match):
+        positions_ops.moe_positions(flat_e, num_experts, 0, 1, 4)
+
+
+def test_position_kernel_is_not_counted_as_a_matrix_product():
+    """The benchmark sums kernels whose names match its GEMM pattern as
+    the models' matrix products; the position kernel's name stays out."""
+    from portbench.harness.trace import GEMM
+    src = open(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                            "moe_positions.cu")).read()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s+)?(\w+)\s*\(", src)
+    assert names == ["moe_positions_kernel"]
+    assert not GEMM.search(names[0])
 
 
 # ---------------------------------------------------------------------------
