@@ -1608,7 +1608,7 @@ def phase_dynamic(main: dict, ps_losses: dict) -> dict:
     rt = build_runtime(cfg)
     tr = rt.trainer
     walls = []
-    measure = tr.measure_costs
+    measure = tr.measured_times
 
     def timed_measure(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1616,7 +1616,7 @@ def phase_dynamic(main: dict, ps_losses: dict) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         return out
-    tr.measure_costs = timed_measure
+    tr.measured_times = timed_measure
     losses, costs = [], []
     for _ in range(2):
         losses.extend(rt.fit(1))
@@ -2975,14 +2975,14 @@ def mlstm_forms_on_the_card(dev) -> float:
 def slstm_share(rt, steady: float) -> None:
     """One more ZeRO step, untraced, with the host clock around each sLSTM
     block's forward (outside autograd) and each sLSTM block's pull-back
-    (``dist/zero.py::_vjp``: the recompute under autograd and the
+    (``models/model.py::layer_vjp``: the recompute under autograd and the
     backward), the card synchronised at each edge: their seconds against
     the step's.  The loop is host-paced (the trace's device time is a
     small part of the step), so its wall time is what the step pays."""
-    from repro_torch.dist import zero as zero_mod
     from repro_torch.models import blocks
+    from repro_torch.models import model as model_lib
     init, apply = blocks.RECURRENT["slstm"]
-    vjp = zero_mod._vjp
+    vjp = model_lib.layer_vjp
     spent = {"forward": [], "pull-back": []}
 
     def clocked(kind, fn, *a, **k):
@@ -3003,7 +3003,7 @@ def slstm_share(rt, steady: float) -> None:
             return clocked("pull-back", vjp, fn, primals, cotangent)
         return vjp(fn, primals, cotangent)
     blocks.RECURRENT["slstm"] = (init, timed_apply)
-    zero_mod._vjp = timed_vjp
+    model_lib.layer_vjp = timed_vjp
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3012,7 +3012,7 @@ def slstm_share(rt, steady: float) -> None:
         wall = time.perf_counter() - t0
     finally:
         blocks.RECURRENT["slstm"] = (init, apply)
-        zero_mod._vjp = vjp
+        model_lib.layer_vjp = vjp
     total = sum(map(sum, spent.values()))
     parts = ", ".join(f"{kind} {len(v)}x {sum(v):.3f} s"
                       for kind, v in spent.items())

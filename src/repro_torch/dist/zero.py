@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -45,7 +45,6 @@ from repro_torch.dist.collectives import (FlatSpec,
                                           make_flat_spec,
                                           reduce_scatter_bucket,
                                           unflatten_tree)
-from repro_torch.models import blocks as blocks_lib
 from repro_torch.models import model as model_lib
 from repro_torch.optim import Optimizer
 from repro_torch.optim.optimizers import OptState
@@ -67,36 +66,6 @@ def default_group(device: torch.device):
                          f"which cannot serve tensors on {device}; "
                          f"initialise a {backend!r} group or pass group=")
     return dist.group.WORLD
-
-
-def _vjp(fn: Callable, primals: Sequence[Any], cotangent) -> List[Any]:
-    """Recompute ``fn(*primals)`` under autograd and pull ``cotangent``
-    back to every primal tree (zeros where a primal is unused).
-
-    ``fn`` may return a tuple of tensors, pulled back with a tuple of
-    cotangents, as ``jax.vjp`` does.  A cotangent of ``None`` leaves its
-    output out: a dense block's aux is a constant zero with no graph,
-    which ``torch.autograd.grad`` refuses.  Every other output must carry
-    a graph, or ``torch.autograd.grad`` raises: an MoE aux that lost its
-    graph fails loudly instead of dropping the router's term."""
-    vars_ = [tree.tree_map(lambda x: x.detach().requires_grad_(), p)
-             for p in primals]
-    with torch.enable_grad():
-        out = fn(*vars_)
-    if isinstance(out, tuple):
-        pairs = [(o, c) for o, c in zip(out, cotangent) if c is not None]
-        out = [o for o, _ in pairs]
-        cotangent = [c for _, c in pairs]
-    flat = [leaf for v in vars_ for leaf in tree.leaves(v)]
-    grads = list(torch.autograd.grad(out, flat, grad_outputs=cotangent,
-                                     allow_unused=True,
-                                     materialize_grads=True))
-    result, i = [], 0
-    for v in vars_:
-        n = len(tree.leaves(v))
-        result.append(tree.unflatten(tree.structure(v), grads[i:i + n]))
-        i += n
-    return result
 
 
 @dataclasses.dataclass
@@ -248,27 +217,6 @@ class ZeroTrainer:
         return state
 
     # ------------------------------------------------------------------
-    # per-sched-layer applies (used forward AND in the recomputes)
-    # ------------------------------------------------------------------
-
-    def _apply_embed(self, embed_tree, batch):
-        return model_lib._embed_inputs(self.cfg, {"embed": embed_tree}, batch)
-
-    def _apply_block(self, block_tree, x, kind):
-        y, _, aux = blocks_lib.apply_block(block_tree, x, self.cfg, kind,
-                                           mode="train")
-        return y, aux
-
-    def _apply_final(self, final_tree, embed_tree, x, batch):
-        """Final norm + (possibly embedding-tied) head + masked CE (the
-        labels padded with ``-1`` over prepended vision tokens)."""
-        logits = model_lib._head(
-            self.cfg, {"embed": embed_tree, "final": final_tree}, x)
-        return model_lib.cross_entropy(
-            logits, model_lib.padded_labels(self.cfg, logits,
-                                            batch["labels"]))
-
-    # ------------------------------------------------------------------
     # the train step
     # ------------------------------------------------------------------
 
@@ -289,7 +237,7 @@ class ZeroTrainer:
     def step(self, state, batch):
         """One training step; returns ``(state, mean loss)``.  The state's
         buffers are updated in place."""
-        Ls, kinds = self.num_layers, self._kinds
+        Ls, kinds, cfg = self.num_layers, self._kinds, self.cfg
         batch = self._local_batch(batch)
         shards = state["flat_params"]
 
@@ -303,15 +251,16 @@ class ZeroTrainer:
         acts: Dict[int, torch.Tensor] = {}
         with torch.no_grad(), tracing.span("zero.forward"):
             aux = torch.zeros((), dtype=torch.float32, device=self.device)
-            h = self._apply_embed(full[0], batch)
+            h = model_lib.apply_embed(cfg, full[0], batch)
             for l in range(1, Ls - 1):
                 acts[l] = h
-                h, a = self._apply_block(full[l], h, kinds[l - 1])
+                h, a = model_lib.apply_train_block(cfg, full[l], h,
+                                                   kinds[l - 1])
                 aux = aux + a
                 if self.zero3:
                     del full[l]          # re-pulled for the backward
             acts[Ls - 1] = h
-            ce = self._apply_final(full[Ls - 1], full[0], h, batch)
+            ce = model_lib.apply_final(cfg, full[Ls - 1], full[0], h, batch)
             loss = ce + self.aux_weight * aux
             del h
 
@@ -332,23 +281,23 @@ class ZeroTrainer:
             with tracing.span("zero.backward"):
                 for l in bucket:   # descending layer order within the bucket
                     if l == Ls - 1:
-                        g_final, embed_from_head, ct_h = _vjp(
-                            lambda pf, pe, hh: self._apply_final(pf, pe, hh,
-                                                                 batch),
+                        g_final, embed_from_head, ct_h = model_lib.layer_vjp(
+                            lambda pf, pe, hh: model_lib.apply_final(
+                                cfg, pf, pe, hh, batch),
                             (full[l], full[0], acts.pop(l)), None)
                         bucket_grads[l] = g_final
                     elif l == 0:
-                        (g_embed,) = _vjp(
-                            lambda pe: self._apply_embed(pe, batch),
+                        (g_embed,) = model_lib.layer_vjp(
+                            lambda pe: model_lib.apply_embed(cfg, pe, batch),
                             (full[0],), ct_h)
                         bucket_grads[l] = tree.tree_map(torch.add, g_embed,
                                                         embed_from_head)
                         embed_from_head = ct_h = None
                     else:
                         kind = kinds[l - 1]
-                        g_block, ct_h = _vjp(
-                            lambda p, hh, _k=kind: self._apply_block(p, hh,
-                                                                     _k),
+                        g_block, ct_h = model_lib.layer_vjp(
+                            lambda p, hh, _k=kind: model_lib.apply_train_block(
+                                cfg, p, hh, _k),
                             (full[l], acts.pop(l)), (ct_h, aux_ct))
                         bucket_grads[l] = g_block
                     if l != 0:

@@ -24,7 +24,7 @@ with ``-1`` over them.  Both frontends are stubs (``models/frontend.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -72,28 +72,83 @@ def _embed_tokens(cfg: ArchConfig, tokens: torch.Tensor,
     return embed(tokens, table, scale=False) * cfg.embedding_multiplier
 
 
-def _embed_inputs(cfg: ArchConfig, params: Params,
-                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Produce the (B, T, d) input sequence from the modality's batch."""
+# ---------------------------------------------------------------------------
+# the per-sched-layer program (``forward``, the ZeRO / PS / pipeline steps
+# and the measurement pass run every sched layer through these)
+# ---------------------------------------------------------------------------
+
+
+def apply_embed(cfg: ArchConfig, embed_tree: Any,
+                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Sched layer 0: the (B, T, d) input sequence from the modality's
+    batch."""
     if cfg.frontend == "audio":
-        return dense(batch["frames"], params["embed"]["in_proj"])
-    x = _embed_tokens(cfg, batch["tokens"], params["embed"]["table"])
+        return dense(batch["frames"], embed_tree["in_proj"])
+    x = _embed_tokens(cfg, batch["tokens"], embed_tree["table"])
     if cfg.frontend == "vision" and "vision_embeds" in batch:
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     return x
 
 
-def _head(cfg: ArchConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final"]["norm"], cfg.norm_eps)
+def apply_train_block(cfg: ArchConfig, block_tree: Any, x: torch.Tensor,
+                      kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A middle sched layer: one block in train mode, ``(y, aux)``."""
+    y, _, aux = blocks.apply_block(block_tree, x, cfg, kind, mode="train")
+    return y, aux
+
+
+def head_logits(cfg: ArchConfig, final_tree: Any, embed_tree: Any,
+                x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head (the embedding table when tied)."""
+    x = rms_norm(x, final_tree["norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        logits = logits_from_embedding(x, params["embed"]["table"],
+        logits = logits_from_embedding(x, embed_tree["table"],
                                        cfg.final_logit_softcap)
     else:
-        logits = softcap(dense(x, params["final"]["head"]),
+        logits = softcap(dense(x, final_tree["head"]),
                          cfg.final_logit_softcap)
     if cfg.logits_scaling != 1.0:
         logits = logits / cfg.logits_scaling
     return logits
+
+
+def apply_final(cfg: ArchConfig, final_tree: Any, embed_tree: Any,
+                x: torch.Tensor, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+    """The last sched layer: :func:`head_logits` and the masked CE (the
+    labels padded with ``-1`` over prepended vision tokens)."""
+    logits = head_logits(cfg, final_tree, embed_tree, x)
+    return cross_entropy(logits, padded_labels(cfg, logits, batch["labels"]))
+
+
+def layer_vjp(fn: Callable, primals: Sequence[Any], cotangent) -> List[Any]:
+    """Recompute ``fn(*primals)`` under autograd and pull ``cotangent``
+    back to every primal tree (zeros where a primal is unused).
+
+    ``fn`` may return a tuple of tensors, pulled back with a tuple of
+    cotangents, as ``jax.vjp`` does.  A cotangent of ``None`` leaves its
+    output out: a dense block's aux is a constant zero with no graph,
+    which ``torch.autograd.grad`` refuses.  Every other output must carry
+    a graph, or ``torch.autograd.grad`` raises: an MoE aux that lost its
+    graph fails loudly instead of dropping the router's term."""
+    vars_ = [tree.tree_map(lambda x: x.detach().requires_grad_(), p)
+             for p in primals]
+    with torch.enable_grad():
+        out = fn(*vars_)
+    if isinstance(out, tuple):
+        pairs = [(o, c) for o, c in zip(out, cotangent) if c is not None]
+        out = [o for o, _ in pairs]
+        cotangent = [c for _, c in pairs]
+    flat = [leaf for v in vars_ for leaf in tree.leaves(v)]
+    grads = list(torch.autograd.grad(out, flat, grad_outputs=cotangent,
+                                     allow_unused=True,
+                                     materialize_grads=True))
+    result, i = [], 0
+    for v in vars_:
+        n = len(tree.leaves(v))
+        result.append(tree.unflatten(tree.structure(v), grads[i:i + n]))
+        i += n
+    return result
 
 
 def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -109,7 +164,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
             raise ValueError("encoder-only model has no decode mode")
         x = _embed_tokens(cfg, batch["token"], params["embed"]["table"])
     else:
-        x = _embed_inputs(cfg, params, batch)
+        x = apply_embed(cfg, params["embed"], batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: List[Any] = []
     for i, kind in enumerate(cfg.layer_kinds()):
@@ -126,7 +181,7 @@ def forward(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
         aux = aux + a
     if last_only:
         x = x[:, -1:]           # narrow before the (huge) vocab projection
-    logits = _head(cfg, params, x)
+    logits = head_logits(cfg, params["final"], params["embed"], x)
     out_caches = new_caches if mode in ("prefill", "decode") else None
     return logits, out_caches, aux
 

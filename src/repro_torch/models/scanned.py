@@ -116,7 +116,7 @@ def forward_scanned(cfg: ArchConfig, sp: Dict[str, Any],
                          f"{mode!r}")
     pattern = cfg.layer_pattern
     n_groups, _ = group_count(cfg)
-    x = model_lib._embed_inputs(cfg, {"embed": sp["embed"]}, batch)
+    x = model_lib.apply_embed(cfg, sp["embed"], batch)
     # a running sum in layer order, as model.forward adds the aux terms
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -163,8 +163,7 @@ def forward_scanned(cfg: ArchConfig, sp: Dict[str, Any],
 
     if last_only:
         x = x[:, -1:]           # narrow before the (huge) vocab projection
-    logits = model_lib._head(cfg, {"embed": sp["embed"],
-                                   "final": sp["final"]}, x)
+    logits = model_lib.head_logits(cfg, sp["final"], sp["embed"], x)
     caches = None
     if mode == "prefill":
         scanned = (tuple(_stack_trees([g[j] for g in group_caches])

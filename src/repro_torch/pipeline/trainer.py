@@ -13,15 +13,16 @@ stage count, and equal to the ZeRO step's on one rank, because every
 stage runs the same per-layer ops in the same order; only the stage
 boundaries move:
 
-* forward (under ``no_grad``): ``_embed_inputs`` → ``apply_block``... →
-  head, with the CE *numerator* accumulated per micro-batch and one
-  division by the full-batch mask count at the end (at M = 1 this is
-  ``cross_entropy``'s sum / clamp / divide);
+* forward (under ``no_grad``): ``apply_embed`` → ``apply_train_block``...
+  → head (``models/model.py``'s per-sched-layer program), with the CE
+  *numerator* accumulated per micro-batch and one division by the
+  full-batch mask count at the end (at M = 1 this is ``cross_entropy``'s
+  sum / clamp / divide);
 * backward: per stage and micro-batch, the stage's forward recomputed
   under ``no_grad`` (each layer's input kept), then per-layer VJPs in
-  descending order (``dist/zero.py::_vjp``, which recomputes the layer
-  under autograd), with the tied-head embedding cotangent routed back to
-  the stage that owns the embedding;
+  descending order (``models/model.py::layer_vjp``, which recomputes the
+  layer under autograd), with the tied-head embedding cotangent routed
+  back to the stage that owns the embedding;
 * gradients: each layer's gradient flattened as its VJP hands it back and
   added in place into that layer's accumulator, micro-batch by
   micro-batch;
@@ -58,8 +59,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.costmodel import LayerCosts
 from repro_torch.dist.collectives import (FlatSpec, flatten_tree,
                                           make_flat_spec, unflatten_tree)
-from repro_torch.dist.zero import _vjp
-from repro_torch.models import blocks as blocks_lib
 from repro_torch.models import model as model_lib
 from repro_torch.optim import Optimizer
 from repro_torch.pipeline.partition import StagePartition, partition_loads
@@ -130,21 +129,13 @@ class PipelineTrainer:
         self._transfer_plans: Optional[List[TransferPlan]] = None
 
     # ------------------------------------------------------------------
-    # per-sched-layer applies (the ZeroTrainer's math)
+    # the loss of a micro-batch (the layers run ``models/model.py``'s
+    # per-sched-layer program, as the ZeroTrainer does)
     # ------------------------------------------------------------------
-
-    def _apply_embed(self, embed_tree, batch):
-        return model_lib._embed_inputs(self.cfg, {"embed": embed_tree}, batch)
-
-    def _apply_block(self, block_tree, x, kind):
-        y, _, aux = blocks_lib.apply_block(block_tree, x, self.cfg, kind,
-                                           mode="train")
-        return y, aux
 
     def _ce_num(self, final_tree, embed_tree, x, batch):
         """The numerator of ``cross_entropy`` — same ops, no division."""
-        logits = model_lib._head(
-            self.cfg, {"embed": embed_tree, "final": final_tree}, x)
+        logits = model_lib.head_logits(self.cfg, final_tree, embed_tree, x)
         labels = model_lib.padded_labels(self.cfg, logits,
                                          batch["labels"]).long()
         mask = (labels >= 0).float()
@@ -246,8 +237,8 @@ class PipelineTrainer:
         micro = self._split(batch)[0]
         embed = unflatten_tree(
             torch.empty(self.specs[0].padded, device="meta"), self.specs[0])
-        h = self._apply_embed(embed, {k: v.to("meta")
-                                      for k, v in micro.items()})
+        h = model_lib.apply_embed(self.cfg, embed, {k: v.to("meta")
+                                                    for k, v in micro.items()})
         self._bspecs = [make_flat_spec(h, 1)] * (self.num_stages - 1)
 
     def _to_boundary(self, h: torch.Tensor, b: int) -> torch.Tensor:
@@ -278,14 +269,15 @@ class PipelineTrainer:
         layers = self.partition.layers_of(s)
         Ls = self.num_layers
         if 0 in layers:
-            h = self._apply_embed(trees[0], mb)
+            h = model_lib.apply_embed(self.cfg, trees[0], mb)
         else:
             h = unflatten_tree(h_in, self._bspecs[s - 1])
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for l in layers:
             if l == 0 or l == Ls - 1:
                 continue
-            h, a = self._apply_block(trees[l], h, self._kinds[l - 1])
+            h, a = model_lib.apply_train_block(self.cfg, trees[l], h,
+                                               self._kinds[l - 1])
             aux = aux + a
         if (Ls - 1) in layers:
             return self._ce_num(trees[Ls - 1], embed_tree, h, mb), aux
@@ -300,20 +292,21 @@ class PipelineTrainer:
         when the head lies here but the embedding does not, the head's
         embedding gradient flat (``None`` where there is none)."""
         layers = self.partition.layers_of(s)
-        Ls, kinds = self.num_layers, self._kinds
+        Ls, kinds, cfg = self.num_layers, self._kinds, self.cfg
         has_embed, has_head = 0 in layers, (Ls - 1) in layers
 
         acts: Dict[int, torch.Tensor] = {}
         with torch.no_grad():
             if has_embed:
-                h = self._apply_embed(trees[0], mb)
+                h = model_lib.apply_embed(cfg, trees[0], mb)
             else:
                 h = unflatten_tree(h_in, self._bspecs[s - 1])
             for l in layers:
                 if l == 0 or l == Ls - 1:
                     continue
                 acts[l] = h
-                h, _ = self._apply_block(trees[l], h, kinds[l - 1])
+                h, _ = model_lib.apply_train_block(cfg, trees[l], h,
+                                                   kinds[l - 1])
             if has_head:
                 acts[Ls - 1] = h
             del h
@@ -326,19 +319,20 @@ class PipelineTrainer:
         embed_from_head = None
         for l in reversed(layers):
             if l == Ls - 1:
-                g, embed_from_head, ct_h = _vjp(
+                g, embed_from_head, ct_h = model_lib.layer_vjp(
                     lambda pf, pe, hh: self._ce_num(pf, pe, hh, mb) / den,
                     (trees[l], embed_tree, acts.pop(l)), None)
             elif l == 0:
-                (g,) = _vjp(lambda pe: self._apply_embed(pe, mb),
-                            (trees[0],), ct_h)
+                (g,) = model_lib.layer_vjp(
+                    lambda pe: model_lib.apply_embed(cfg, pe, mb),
+                    (trees[0],), ct_h)
                 if embed_from_head is not None:   # head in the same stage
                     g = tree.tree_map(torch.add, g, embed_from_head)
                     embed_from_head = None
             else:
-                g, ct_h = _vjp(
-                    lambda p, hh, _k=kinds[l - 1]: self._apply_block(p, hh,
-                                                                     _k),
+                g, ct_h = model_lib.layer_vjp(
+                    lambda p, hh, _k=kinds[l - 1]: model_lib.apply_train_block(
+                        cfg, p, hh, _k),
                     (trees[l], acts.pop(l)), (ct_h, aux_ct))
             _accumulate(acc, l, flatten_tree(g, self.specs[l]))
             del g

@@ -36,15 +36,14 @@ time and the paper's Table I overhead-hidden check against the topology's
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
-
-import numpy as np
 
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.buckets import BucketPlan, plan_from_decision
 from repro_torch.core.costmodel import TopologyCosts
 from repro_torch.core.planner import AsyncPlanner, Planner
-from repro_torch.core.profiler import LayerProfile, LayerTimingHook
+from repro_torch.core.profiler import LayerProfile
 from repro_torch.core.scheduler import TopologyScheduler
 from repro_torch.models import model as model_lib
 from repro_torch.models.profiles import layer_profiles
@@ -52,7 +51,6 @@ from repro_torch.optim import Optimizer
 from repro_torch.ps.async_mode import AsyncPSTrainer, AsyncRunLog
 from repro_torch.ps.topology import TopologySchedule, as_topology_schedule
 from repro_torch.ps.worker import PSTrainer
-from repro_torch.runtime.measure import measure_layer_times, measurement_due
 from repro_torch.runtime.replan import ReplanMixin, sequential_plan
 
 __all__ = ["DynamicPSTrainer", "AsyncRescheduleEvent",
@@ -107,23 +105,12 @@ class DynamicPSTrainer(ReplanMixin):
     async_planning: bool = False  # pre-plan epoch e+1 in e's idle window
     plan_cache_size: int = 256    # memoized decisions kept (LRU)
 
+    UNIT = "segments"
+
     def __post_init__(self):
-        if self.steps_per_epoch < 1:
-            raise ValueError(f"steps_per_epoch must be >= 1, got "
-                             f"{self.steps_per_epoch}")
-        if self.cost_source not in ("analytic", "measured"):
-            raise ValueError(f"cost_source must be 'analytic' or 'measured', "
-                             f"got {self.cost_source!r}")
-        if self.remeasure_every < 0:
-            raise ValueError(f"remeasure_every must be >= 0, got "
-                             f"{self.remeasure_every}")
+        self._init_replan(functools.partial(TopologyScheduler,
+                                            mode="consensus"))
         self.topology: TopologySchedule = as_topology_schedule(self.topology)
-        planner_cls = AsyncPlanner if self.async_planning else Planner
-        self.planner = planner_cls(cache_size=self.plan_cache_size)
-        self.scheduler = TopologyScheduler(
-            strategy=self.strategy, reschedule_every=self.steps_per_epoch,
-            mode="consensus", planner=self.planner)
-        self.hook = LayerTimingHook(warmup=self.measure_warmup)
         self._profiles = layer_profiles(self.cfg, self.input_shape)
         self.base = PSTrainer(
             cfg=self.cfg, plan=sequential_plan(
@@ -133,31 +120,6 @@ class DynamicPSTrainer(ReplanMixin):
             aux_weight=self.aux_weight, compressor=self.compressor)
         self.device = self.base.device
         self.compressor = self.base.compressor   # "none" normalized away
-        self._init_replan()
-        self._step_idx = 0
-        self._costs: Optional[TopologyCosts] = None
-        self._measured_fc_bc: Optional[Tuple[np.ndarray, np.ndarray]] = None
-        self._measured_epoch = -1
-
-    # ------------------------------------------------------------------
-    # state / introspection
-    # ------------------------------------------------------------------
-
-    def init_state(self, gen):
-        return self.base.init_state(gen)
-
-    @property
-    def step_index(self) -> int:
-        return self._step_idx
-
-    @property
-    def epoch(self) -> int:
-        return self._step_idx // self.steps_per_epoch
-
-    @property
-    def planner_stats(self) -> Dict[str, float]:
-        """Memo-cache / async-planning counters (``PlannerStats``)."""
-        return self.planner.stats.as_dict()
 
     def costs_for_epoch(self, epoch: int, state=None, batch=None, *,
                         remeasure: bool = False) -> TopologyCosts:
@@ -173,24 +135,7 @@ class DynamicPSTrainer(ReplanMixin):
         if self.cost_source == "analytic":
             return topo.topology_costs(self._profiles,
                                        compressor=self.compressor)
-        if measurement_due(self._measured_fc_bc, self._measured_epoch,
-                           epoch, self.remeasure_every, force=remeasure):
-            if state is None or batch is None:
-                # view accessors may read the cached projection without
-                # re-measuring; only the very first measurement has
-                # nothing to serve
-                if self._measured_fc_bc is None:
-                    raise ValueError(
-                        "cost_source='measured' needs state and batch for "
-                        "the first measurement")
-            else:
-                measure_layer_times(self.base._zero, self.hook, state,
-                                    batch, iters=self.measure_iters)
-                Ls = self.base.num_layers
-                self._measured_fc_bc = (self.hook.median("fc", Ls),
-                                        self.hook.median("bc", Ls))
-                self._measured_epoch = epoch
-        fc, bc = self._measured_fc_bc
+        fc, bc = self.measured_times(epoch, state, batch, force=remeasure)
         return topo.topology_costs_measured(
             self._profiles, fc=fc, bc=bc, compressor=self.compressor)
 
@@ -220,76 +165,22 @@ class DynamicPSTrainer(ReplanMixin):
         return simulate_ps_replan(costs, decisions)
 
     # ------------------------------------------------------------------
-    # the dynamic loop
+    # the loop's own parts (the loop itself lives in ReplanMixin)
     # ------------------------------------------------------------------
 
-    def _maybe_reschedule(self, i: int, state, batch) -> None:
-        boundary = i % self.steps_per_epoch == 0
-        if boundary:
-            epoch = i // self.steps_per_epoch
-            self._costs = self.costs_for_epoch(epoch, state, batch)
-            # the data path is topology-independent; the base trainer's
-            # accounting views (segment owners, transfer bytes, timelines)
-            # should reflect the active fabric
-            self.base.topology = self.topology.topology_at(epoch)
-        decision = self.scheduler.decision_for_iteration(self._costs)
-        # (``_step_fn is None`` off-boundary ⇒ loop state was just restored
-        # from a checkpoint: rebuild the active plan's step, no event)
-        if not boundary and self._step_fn is not None:
-            return
-        plan = plan_from_decision(*decision, self.base.num_layers)
+    def _plan_step(self, plan):
         # the PS step is its contained ZeRO step: cache that trainer's
         # shallow ``with_plan`` copy (it shares the flat layouts)
-        prev, retraced = self._activate_plan(
-            plan, lambda: self.base._zero.with_plan(plan).step)
-        if boundary:
-            self._record_reschedule(
-                step=i, epoch=i // self.steps_per_epoch, plan=plan,
-                prev=prev, retraced=retraced, scheduler=self.scheduler,
-                costs=self._costs)
-        if boundary and self.async_planning and \
-                self.cost_source == "analytic":
-            # Phase one of the async protocol: epoch e+1's analytic
-            # topology projection is a pure function of the epoch, so its
-            # per-worker DPs can run now in the Δt + gt¹ idle window and
-            # be collected at the next boundary.  Measured costs solve
-            # inline (the planner's sync fallback).
-            self.planner.submit_topology(
-                self.costs_for_epoch(i // self.steps_per_epoch + 1),
-                self.strategy)
+        return self.base._zero.with_plan(plan).step
 
-    def step(self, state, batch):
-        """One training step; re-plans on topology-epoch boundaries.
-        Returns ``(new_state, mean_loss)``."""
-        self._maybe_reschedule(self._step_idx, state, batch)
-        new_state, loss = self._step_fn(state, batch)
-        self._step_idx += 1
-        return new_state, loss
+    def _submit(self, costs: TopologyCosts) -> None:
+        self.planner.submit_topology(costs, self.strategy)
 
-    def run(self, state, batch_fn: Callable[[int], Any], num_steps: int, *,
-            log_every: int = 0):
-        """Drive ``num_steps`` steps with ``batch_fn(i) -> batch``.
-
-        Returns ``(state, losses)`` with one float loss per step."""
-        losses: List[float] = []
-        for i in range(num_steps):
-            state, loss = self.step(state, batch_fn(i))
-            losses.append(float(loss))
-            if log_every and (i + 1) % log_every == 0:
-                f, b = (len(self._plan.forward), len(self._plan.backward))
-                print(f"step {i + 1:4d}  epoch {self.epoch}  "
-                      f"loss {losses[-1]:.4f}  segments {f}/{b}")
-        return state, losses
-
-    # ------------------------------------------------------------------
-    # loop-state checkpointing — loop_state/save_loop_state come from
-    # ReplanMixin unchanged; the restore re-points the base trainer's
-    # accounting at the resumed epoch's topology
-    # ------------------------------------------------------------------
-
-    def restore_loop_state(self, path: str) -> None:
-        self._restore_loop_common(path)
-        self.base.topology = self.topology.topology_at(self.epoch)
+    def _enter_epoch(self, epoch: int) -> None:
+        # the data path is topology-independent; the base trainer's
+        # accounting views (segment owners, transfer bytes, timelines)
+        # should reflect the active fabric
+        self.base.topology = self.topology.topology_at(epoch)
 
 
 @dataclasses.dataclass(frozen=True)

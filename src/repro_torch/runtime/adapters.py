@@ -316,10 +316,32 @@ class ZeroRuntime(_CompiledRuntime):
         return simulate_iteration(self._costs, *self._decision)
 
 
+class _ReplanRuntime(_CompiledRuntime):
+    """Base for the run-time loops (a ``ReplanMixin`` trainer): its
+    events, its active plan and its loop state beside the model's."""
+
+    @property
+    def events(self):
+        return tuple(self.trainer.events) + tuple(self._eval_events)
+
+    @property
+    def plan(self):
+        return self.trainer.plan
+
+    def save_state(self, path: str) -> None:
+        super().save_state(path)
+        if self._layout.rank == 0:
+            self.trainer.save_loop_state(path + ".loop")
+
+    def restore_state(self, path: str) -> None:
+        super().restore_state(path)
+        self.trainer.restore_loop_state(path + ".loop")
+
+
 @register_runtime("dynamic", description="run-time loop: re-profile + "
                                          "re-plan per epoch, swap the plan's "
                                          "step live")
-class DynamicRuntime(_CompiledRuntime):
+class DynamicRuntime(_ReplanRuntime):
     """Epoch-boundary re-scheduling (paper Section IV-C) over ZeRO."""
 
     def __init__(self, config, arch, batch_fn, device):
@@ -346,14 +368,6 @@ class DynamicRuntime(_CompiledRuntime):
         self._state = self.trainer.init_state(
             _generator(device, config.seed))
 
-    @property
-    def events(self):
-        return tuple(self.trainer.events) + tuple(self._eval_events)
-
-    @property
-    def plan(self):
-        return self.trainer.plan
-
     def step(self, batch) -> float:
         self._state, loss = self.trainer.step(self._state, batch)
         self._account(self.trainer.base.specs, self.trainer.plan,
@@ -363,15 +377,6 @@ class DynamicRuntime(_CompiledRuntime):
 
     def timeline(self):
         return self.trainer.timeline()
-
-    def save_state(self, path: str) -> None:
-        super().save_state(path)
-        if self._layout.rank == 0:
-            self.trainer.save_loop_state(path + ".loop")
-
-    def restore_state(self, path: str) -> None:
-        super().restore_state(path)
-        self.trainer.restore_loop_state(path + ".loop")
 
 
 def _build_topology(config: RuntimeConfig, device: torch.device):
@@ -420,7 +425,7 @@ class PSRuntime(_CompiledRuntime):
 @register_runtime("dynamic-ps", description="run-time loop in the PS "
                                             "regime: consensus re-plan per "
                                             "topology epoch")
-class DynamicPSRuntime(_CompiledRuntime):
+class DynamicPSRuntime(_ReplanRuntime):
     """Topology-epoch re-planning over the sync PS trainer."""
 
     def __init__(self, config, arch, batch_fn, device):
@@ -443,14 +448,6 @@ class DynamicPSRuntime(_CompiledRuntime):
         self._state = self.trainer.init_state(
             _generator(device, config.seed))
 
-    @property
-    def events(self):
-        return tuple(self.trainer.events) + tuple(self._eval_events)
-
-    @property
-    def plan(self):
-        return self.trainer.plan
-
     def step(self, batch) -> float:
         self._state, loss = self.trainer.step(self._state, batch)
         self._account(self.trainer.base.specs, self.trainer.plan,
@@ -461,15 +458,6 @@ class DynamicPSRuntime(_CompiledRuntime):
 
     def timeline(self):
         return None if self.trainer.plan is None else self.trainer.timeline()
-
-    def save_state(self, path: str) -> None:
-        super().save_state(path)
-        if self._layout.rank == 0:
-            self.trainer.save_loop_state(path + ".loop")
-
-    def restore_state(self, path: str) -> None:
-        super().restore_state(path)
-        self.trainer.restore_loop_state(path + ".loop")
 
 
 class _AsyncBase(RuntimeAdapter):

@@ -1,7 +1,9 @@
 """Measured per-sched-layer fc/bc timings (the mxnet.profiler analogue).
 
-Both dynamic trainers share one implementation: each sched layer's forward
-apply and VJP runs standalone and is timed into a
+Both dynamic trainers share one implementation, called from
+:meth:`repro_torch.runtime.replan.ReplanMixin.measured_times`: each sched
+layer's forward apply and VJP (``models/model.py``'s per-sched-layer
+program) runs standalone and is timed into a
 :class:`repro_torch.core.profiler.LayerTimingHook`.  The ZeRO and PS
 trainers share the flat-buffer state layout, so the same routine measures
 either — the PS trainer additionally rescales the timings to each worker's
@@ -21,7 +23,6 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch import tracing
-from repro_torch.dist.zero import _vjp
 from repro_torch.models import model as model_lib
 
 
@@ -59,39 +60,52 @@ def _sample(hook, phase: str, layer: int, fn: Callable, calls: int,
         hook.record(phase, layer, start.elapsed_time(end) / 1e3)
 
 
-def measure_layer_times(zero, hook, state, batch, *, iters: int) -> None:
+def measure_layer_times(cfg, layout, state, batch, hook, *,
+                        aux_weight: float, device: torch.device,
+                        iters: int) -> None:
     """Record ``hook.warmup + iters`` fc/bc time samples per sched layer
     into ``hook`` (resetting it first).
 
-    ``zero`` is a :class:`repro_torch.dist.zero.ZeroTrainer` (the PS
-    trainer's contained one qualifies).  Each layer runs its own forward
-    apply (under ``no_grad``, as the step's forward does) and its VJP — the
-    forward recomputed under autograd plus the backward, in one call, as
-    the reference's ``jax.vjp`` times it and as the step's backward runs
-    it — on the whole ``batch``, on the trainer's device.  Layers of one
-    kind share their inputs (the embedding's output and a ones cotangent),
-    as in the reference; a block's VJP pulls back (output, aux) with the
-    cotangent (ones, ``aux_weight``), so an MoE block's cost includes the
-    router's backward.
+    ``layout`` is the trainer that owns ``state``'s layout (anything with
+    ``params_from_state``: the ZeRO trainer or the PS trainer).  Each
+    layer runs its own forward apply (under ``no_grad``, as the step's
+    forward does) and its VJP — the forward recomputed under autograd plus
+    the backward, in one call, as the reference's ``jax.vjp`` times it and
+    as the step's backward runs it — on the whole ``batch``, on
+    ``device``, through ``models/model.py``'s per-sched-layer program.
+    Layers of one kind share their inputs (the embedding's output and a
+    ones cotangent), as in the reference; a block's VJP pulls back
+    (output, aux) with the cotangent (ones, ``aux_weight``), so an MoE
+    block's cost includes the router's backward.
     """
     with tracing.span("runtime.measure"):
-        _measure(zero, hook, state, batch, iters)
+        _measure(cfg, layout, state, batch, hook, aux_weight, device, iters)
 
 
-def _measure(zero, hook, state, batch, iters: int) -> None:
-    tr = zero
-    Ls, kinds = tr.num_layers, tr._kinds
-    device = tr.device
+def _measure(cfg, layout, state, batch, hook, aux_weight: float,
+             device: torch.device, iters: int) -> None:
+    kinds = cfg.layer_kinds()
     calls = hook.warmup + iters
     batch = {k: v.to(device) for k, v in batch.items()}
-    trees = model_lib.sched_layer_trees(tr.params_from_state(state))
+    trees = model_lib.sched_layer_trees(layout.params_from_state(state))
+    Ls = len(trees)
     hook.reset()
 
+    def embed(pe):
+        return model_lib.apply_embed(cfg, pe, batch)
+
+    def block(p, hh, kind):
+        return model_lib.apply_train_block(cfg, p, hh, kind)
+
+    def final(pf, pe, hh):
+        return model_lib.apply_final(cfg, pf, pe, hh, batch)
+
+    vjp = model_lib.layer_vjp
     with torch.no_grad():
-        h0 = tr._apply_embed(trees[0], batch)
+        h0 = embed(trees[0])
     ct_h = torch.ones_like(h0)
-    aux_ct = (torch.full((), tr.aux_weight, dtype=torch.float32,
-                         device=device) if tr.cfg.is_moe else None)
+    aux_ct = (torch.full((), aux_weight, dtype=torch.float32,
+                         device=device) if cfg.is_moe else None)
 
     def fwd(fn):
         def run():
@@ -99,22 +113,17 @@ def _measure(zero, hook, state, batch, iters: int) -> None:
                 return fn()
         return run
 
-    _sample(hook, "fc", 0, fwd(lambda: tr._apply_embed(trees[0], batch)),
+    _sample(hook, "fc", 0, fwd(lambda: embed(trees[0])), calls, device)
+    _sample(hook, "bc", 0, lambda: vjp(embed, (trees[0],), ct_h),
             calls, device)
-    _sample(hook, "bc", 0, lambda: _vjp(
-        lambda pe: tr._apply_embed(pe, batch), (trees[0],), ct_h),
-        calls, device)
     for l in range(1, Ls - 1):
         kind = kinds[l - 1]
         _sample(hook, "fc", l, fwd(
-            lambda l=l, kind=kind: tr._apply_block(trees[l], h0, kind)),
-            calls, device)
-        _sample(hook, "bc", l, lambda l=l, kind=kind: _vjp(
-            lambda p, hh: tr._apply_block(p, hh, kind),
-            (trees[l], h0), (ct_h, aux_ct)), calls, device)
+            lambda l=l, kind=kind: block(trees[l], h0, kind)), calls, device)
+        _sample(hook, "bc", l, lambda l=l, kind=kind: vjp(
+            lambda p, hh: block(p, hh, kind), (trees[l], h0),
+            (ct_h, aux_ct)), calls, device)
     _sample(hook, "fc", Ls - 1, fwd(
-        lambda: tr._apply_final(trees[Ls - 1], trees[0], h0, batch)),
-        calls, device)
-    _sample(hook, "bc", Ls - 1, lambda: _vjp(
-        lambda pf, pe, hh: tr._apply_final(pf, pe, hh, batch),
-        (trees[Ls - 1], trees[0], h0), None), calls, device)
+        lambda: final(trees[Ls - 1], trees[0], h0)), calls, device)
+    _sample(hook, "bc", Ls - 1, lambda: vjp(
+        final, (trees[Ls - 1], trees[0], h0), None), calls, device)

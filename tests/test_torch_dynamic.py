@@ -344,6 +344,9 @@ def test_measured_costs_sample_every_layer(pipe):
     from repro_torch.core import plan_from_decision
     assert dyn.plan == plan_from_decision(*schedule(costs, "dynacomm"), L)
     assert dyn._measured_epoch == 0
+    # the cache the costs came from, served as it is within the epoch
+    fc, bc = dyn.measured_times(0)
+    assert np.array_equal(fc, costs.fc) and np.array_equal(bc, costs.bc)
 
 
 def test_measured_plan_equals_reference_on_fixed_times(pipe, monkeypatch):
@@ -352,19 +355,20 @@ def test_measured_plan_equals_reference_on_fixed_times(pipe, monkeypatch):
     from repro import core as ref_core
     from repro.configs import get_config as ref_get_config
     from repro.models import model as ref_model
-    import repro_torch.dist.dynamic as port_dynamic
+    import repro_torch.runtime.replan as port_replan
 
     L = 4
     fc = np.array([1e-3, 4e-3, 4e-3, 2e-3])
 
-    def synthetic(zero, hook, state, batch, *, iters):
+    def synthetic(cfg, layout, state, batch, hook, *, aux_weight, device,
+                  iters):
         hook.reset()
         for l in range(L):
             for _ in range(hook.warmup + iters):
                 hook.record("fc", l, fc[l])
                 hook.record("bc", l, 2 * fc[l])
 
-    monkeypatch.setattr(port_dynamic, "measure_layer_times", synthetic)
+    monkeypatch.setattr(port_replan, "measure_layer_times", synthetic)
     dyn = _trainer(cost_source="measured", steps_per_epoch=1,
                    network=bandwidth_shift(10e9, 1e9, at_epoch=1))
     state = dyn.init_state(torch.Generator().manual_seed(0))

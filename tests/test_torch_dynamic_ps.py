@@ -149,7 +149,7 @@ def test_overhead_hidden_is_the_table_one_predicate():
 def test_measured_costs_project_onto_the_topology(monkeypatch):
     """Measured fc/bc (fixed synthetic times here) reach the consensus
     plan through ``topology_costs_measured``, as in the reference."""
-    import repro_torch.ps.dynamic as port_dynamic
+    import repro_torch.runtime.replan as port_replan
     from repro.core import Planner as RefPlanner
     from repro.core import plan_from_decision
     from repro.ps import PSTopology as RefPSTopology
@@ -160,14 +160,15 @@ def test_measured_costs_project_onto_the_topology(monkeypatch):
 
     fc = np.array([1e-3, 4e-3, 4e-3, 2e-3])
 
-    def synthetic(zero, hook, state, batch, *, iters):
+    def synthetic(cfg, layout, state, batch, hook, *, aux_weight, device,
+                  iters):
         hook.reset()
         for l in range(len(fc)):
             for _ in range(hook.warmup + iters):
                 hook.record("fc", l, fc[l])
                 hook.record("bc", l, 2 * fc[l])
 
-    monkeypatch.setattr(port_dynamic, "measure_layer_times", synthetic)
+    monkeypatch.setattr(port_replan, "measure_layer_times", synthetic)
     cfg = _config("none")
     cfg = dataclasses.replace(
         cfg, measure=dataclasses.replace(cfg.measure, cost_source="measured"))

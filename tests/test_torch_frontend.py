@@ -216,7 +216,7 @@ def test_zero_matches_reference(name):
     """hubert: the first untied head through the ZeRO step (``in_proj``'s
     gradient at sched layer 0, the head's at the last, no embedding
     contribution from the head); llava: the labels padded over the vision
-    tokens in ``_apply_final``."""
+    tokens in ``model.apply_final``."""
     cfg, jcfg = _configs(name)
     ref, mine = _reference_batch(jcfg)
     out = parity.zero_runs(cfg, jcfg, ref, mine, PLAN)

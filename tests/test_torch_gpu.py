@@ -481,7 +481,9 @@ def test_measured_costs_come_from_cuda_events(cuda, monkeypatch):
         hook = LayerTimingHook(warmup=1)
         monkeypatch.setattr(torch.cuda, "Event", CountedEvent)
         monkeypatch.setattr(hook, "timed", host_clock)
-        measure.measure_layer_times(zero, hook, state, batch, iters=2)
+        measure.measure_layer_times(arch, zero, state, batch, hook,
+                                    aux_weight=zero.aux_weight,
+                                    device=zero.device, iters=2)
     finally:
         torch.distributed.destroy_process_group()
     L = zero.num_layers

@@ -209,3 +209,51 @@ def test_only_the_tracing_module_reaches_the_profiler():
     assert not found
     with open(os.path.join(PORT, "tracing.py")) as fh:
         assert "_profiler_enabled" in fh.read()
+
+
+def _parsed(path):
+    with open(path) as fh:
+        return ast.parse(fh.read(), path)
+
+
+def _imported(mod):
+    for node in ast.walk(mod):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+def test_the_per_sched_layer_program_is_reached_through_the_model():
+    """The per-sched-layer program lives in ``models/model.py``: the
+    measurement pass imports nothing of ``repro_torch.dist``, the pipeline
+    nothing of ``repro_torch.dist.zero``, and no module but
+    ``dist/zero.py`` touches an underscore member of ``ZeroTrainer`` on
+    any object but its own ``self``."""
+    measure = _parsed(os.path.join(PORT, "runtime", "measure.py"))
+    assert not [m for m in _imported(measure)
+                if m.startswith("repro_torch.dist")]
+    pipeline = _parsed(os.path.join(PORT, "pipeline", "trainer.py"))
+    assert not [m for m in _imported(pipeline)
+                if m.startswith("repro_torch.dist.zero")]
+
+    zero_path = os.path.join(PORT, "dist", "zero.py")
+    cls = next(n for n in _parsed(zero_path).body
+               if isinstance(n, ast.ClassDef) and n.name == "ZeroTrainer")
+    private = {n.name for n in cls.body if isinstance(n, ast.FunctionDef)}
+    private |= {t.attr for n in ast.walk(cls) if isinstance(n, ast.Assign)
+                for t in n.targets if isinstance(t, ast.Attribute)}
+    private = {p for p in private
+               if p.startswith("_") and not p.endswith("__")}
+    assert {"_kinds", "_local_batch", "_gather"} <= private
+    found = []
+    for path in _sources():
+        if path == zero_path or not path.startswith(PORT + os.sep):
+            continue
+        for node in ast.walk(_parsed(path)):
+            if isinstance(node, ast.Attribute) and node.attr in private \
+                    and ast.unparse(node.value) not in ("self", "cls"):
+                found.append((os.path.relpath(path, ROOT), node.lineno,
+                              ast.unparse(node)))
+    assert not found

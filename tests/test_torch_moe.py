@@ -26,7 +26,7 @@ Tolerances, each with its reason:
   two ranks, 2.4e-7 on ps-async; flats 3.2e-6);
 * plans, byte counts, FlatSpec offsets, ledgers and event streams exactly;
 * inside the port, what the arithmetic fixes is bitwise: dense gradients
-  under the aux-pulling ``_vjp``, the pipeline's parameters across stage
+  under the aux-pulling ``model.layer_vjp``, the pipeline's parameters across stage
   counts at M = 1 and across schedules.
 """
 
@@ -67,7 +67,7 @@ from repro_torch.configs.base import InputShape
 from repro_torch.core import BucketPlan, DynaCommScheduler
 from repro_torch.core import costs_from_profiles, plan_from_decision
 from repro_torch.dist import collectives as coll
-from repro_torch.dist.zero import ZeroTrainer, _vjp
+from repro_torch.dist.zero import ZeroTrainer
 from repro_torch.interop import params_from_numpy, zero_state_from_numpy
 from repro_torch.kernels import launch_counts
 from repro_torch.kernels.moe_positions import ops as positions_ops
@@ -542,12 +542,11 @@ def _block_grads(cfg, params, h, ct, aux_weight):
     """One block's ZeRO pull-back, as ``ZeroTrainer.step`` takes it: the
     aux cotangent is ``None`` for a dense block."""
     kind = cfg.layer_kinds()[0]
-    from repro_torch.models import blocks
     aux_ct = (torch.full((), aux_weight, dtype=torch.float32)
               if cfg.is_moe else None)
-    return _vjp(lambda p, hh: blocks.apply_block(p, hh, cfg, kind,
-                                                 mode="train")[::2],
-                (params, h), (ct, aux_ct))
+    return model.layer_vjp(
+        lambda p, hh: model.apply_train_block(cfg, p, hh, kind),
+        (params, h), (ct, aux_ct))
 
 
 def test_zero_block_pullback_carries_the_router_aux():
@@ -584,9 +583,10 @@ def test_dense_block_pullback_ignores_the_aux_cotangent():
                     .manual_seed(1))
     ct = torch.randn(h.shape, generator=torch.Generator().manual_seed(2))
     from repro_torch.models import blocks
-    one = _vjp(lambda p, hh: blocks.apply_block(p, hh, cfg, "global_attn",
-                                                mode="train")[0],
-               (params["layers"][0], h), ct)
+    one = model.layer_vjp(
+        lambda p, hh: blocks.apply_block(p, hh, cfg, "global_attn",
+                                         mode="train")[0],
+        (params["layers"][0], h), ct)
     pair = _block_grads(cfg, params["layers"][0], h, ct, 0.01)
     assert all(torch.equal(a, b) for a, b in
                zip(tree.leaves(one), tree.leaves(pair)))
@@ -606,8 +606,8 @@ def test_pullback_raises_on_an_aux_without_a_graph():
         y, _, aux = blocks.apply_block(p, hh, cfg, kind, mode="train")
         return y, aux.detach()
     with pytest.raises(RuntimeError):
-        _vjp(detached, (params["layers"][0], h),
-             (torch.ones_like(h), torch.full((), 0.01)))
+        model.layer_vjp(detached, (params["layers"][0], h),
+                        (torch.ones_like(h), torch.full((), 0.01)))
 
 
 def test_async_gradient_equals_reference_with_the_aux_term():
