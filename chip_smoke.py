@@ -226,6 +226,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -1185,6 +1186,82 @@ def check_moe_positions(gen, dev) -> dict:
     return records
 
 
+ADAMW_BYTES = 28          # g, p, m, v read and p, m, v written, 4 B each
+
+
+def adamw_args(step: int) -> dict:
+    """The runtimes' AdamW (``adamw(lr)`` with its defaults) at ``step``,
+    bias corrections as ``adamw().update`` takes them."""
+    t = np.float32(step)
+    return dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0,
+                b1c=float(np.float32(1.0) - np.float32(0.9) ** t),
+                b2c=float(np.float32(1.0) - np.float32(0.999) ** t))
+
+
+def check_adamw(gen, dev, specs) -> dict:
+    """The AdamW kernel at the training cells' buffers (granite-3-2b's
+    embedding and one of its blocks, granite-4.0-h-small's table): two
+    steps bitwise its plain loop, then both timed at step 3, and
+    PyTorch's fused AdamW (``torch._fused_adamw_``, other roundings) as the
+    library's time."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import ops, ref
+    hybrid = get_config("granite-4.0-h-small")
+    shapes = {"adamw@embed": specs[0].total, "adamw@block": specs[1].total,
+              "adamw@table": hybrid.vocab_size * hybrid.d_model}
+    records = {}
+    for name, n in shapes.items():
+        g = torch.randn(n, generator=gen, device=dev)
+        kernel = [torch.randn(n, generator=gen, device=dev),
+                  torch.zeros(n, device=dev), torch.zeros(n, device=dev)]
+        plain = [x.clone() for x in kernel]
+        for step in (1, 2):
+            ops.adamw_update(g, *kernel, **adamw_args(step))
+            ref.adamw_update_ref(g, *plain, **adamw_args(step))
+        for a, b, what in zip(kernel, plain, "pmv"):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"{name}: {what} differs from the "
+                                     f"plain loop")
+        del plain
+        args = adamw_args(3)
+
+        def fused():
+            ops.adamw_update(g, *kernel, **args)
+
+        def loop():
+            ref.adamw_update_ref(g, *kernel, **args)
+
+        def library():
+            torch._fused_adamw_(
+                [kernel[0]], [g], [kernel[1]], [kernel[2]], [], [steps],
+                lr=args["lr"], beta1=args["b1"], beta2=args["b2"],
+                weight_decay=0.0, eps=args["eps"], amsgrad=False,
+                maximize=False)
+        steps = torch.full((), 3.0, device=dev)
+        warm_up(fused)
+        ks = [cuda_ms(fused, 10) for _ in range(8)]
+        try:
+            library_ms = cuda_ms(library, 10)
+        except (AttributeError, RuntimeError, TypeError) as e:
+            say("kernels", f"{name}: no library time ({e})")
+            library_ms = None
+        rec = dict(max_abs_err=0.0, ms=sum(ks) / len(ks),
+                   ms_range=[min(ks), max(ks)],
+                   plain_ms=cuda_ms(loop, 3, ahead=False),
+                   library_ms=library_ms,
+                   bound_ms=ADAMW_BYTES * n / HBM_BYTES_PER_S * 1e3,
+                   bound_by="bytes")
+        records[name] = rec
+        say("kernels", f"{name} at {n:,} entries: bitwise the plain loop "
+                       f"over 2 steps; {rec['ms']:.4f} ms [{min(ks):.4f}-"
+                       f"{max(ks):.4f}], {rec['bound_ms'] / rec['ms']:.1%} "
+                       f"of the byte bound {rec['bound_ms']:.4f} ms; the "
+                       f"plain loop {rec['plain_ms']:.4f} ms")
+        del g, kernel
+        free_cuda()
+    return records
+
+
 def phase_kernels(arch, plan, specs) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1199,6 +1276,8 @@ def phase_kernels(arch, plan, specs) -> dict:
     records.update(check_rglru(gen, dev))
     free_cuda()
     records.update(check_moe_positions(gen, dev))
+    free_cuda()
+    records.update(check_adamw(gen, dev, specs))
     for name, r in records.items():
         lib = r["library_ms"]
         say("kernels", f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f},"
@@ -1257,13 +1336,15 @@ def phase_main(profile: bool) -> dict:
     return dict(counts=counts, losses=losses, peak=peak)
 
 
-def expected_launches(plan, arch, compress, steps: int = STEPS) -> dict:
+def expected_launches(plan, arch, compress, steps: int = STEPS,
+                      adamw: bool = True) -> dict:
     """Kernel launches over ``steps`` steps of a plan: one pack per bucket,
     one unpack per pull bucket, the flash forward twice per attention
     block (forward and recompute), the RG-LRU scan twice per RG-LRU block
     (forward and recompute) and its fused backward once, the MoE position
-    kernel twice per MoE block (forward and recompute), and one launch of
-    each ``compress`` kernel per sched layer."""
+    kernel twice per MoE block (forward and recompute), one launch of
+    each ``compress`` kernel per sched layer, and AdamW's update once per
+    sched layer's buffer (none under SGD)."""
     kinds = arch.layer_kinds()
     per_step = {"bucket_pack": len(plan.forward) + len(plan.backward),
                 "bucket_unpack": len(plan.forward),
@@ -1273,17 +1354,19 @@ def expected_launches(plan, arch, compress, steps: int = STEPS) -> dict:
                 "rglru_scan_bwd": kinds.count("rglru"),
                 "moe_positions": 2 * len(kinds) if arch.is_moe else 0}
     layers = sum(len(b) for b in plan.backward)
+    per_step["adamw"] = layers if adamw else 0
     for name in PS_SCHEMES[0][1] + PS_SCHEMES[1][1]:
         per_step[name] = layers if name in compress else 0
     return {name: steps * n for name, n in per_step.items()}
 
 
-def launches_of_plans(plans, arch, compress=()) -> dict:
+def launches_of_plans(plans, arch, compress=(), adamw: bool = True) -> dict:
     """``expected_launches`` summed over ``(plan, steps)`` pairs: a run
     whose plan changes mid-way."""
     total: dict = {}
     for plan, steps in plans:
-        for name, n in expected_launches(plan, arch, compress, steps).items():
+        for name, n in expected_launches(plan, arch, compress, steps,
+                                         adamw).items():
             total[name] = total.get(name, 0) + n
     return total
 
@@ -1917,7 +2000,8 @@ def async_run(config, pushes: int, model=None, hook=None) -> dict:
     loop = getattr(rt.trainer, "trainer", rt.trainer)
     attempts = dict(loop._loop.attempts)
     out = dict(rt=rt, loop=loop, losses=losses, secs=secs, counts=counts,
-               built=built, peak=torch.cuda.max_memory_allocated(),
+               commits=commits(rt), built=built,
+               peak=torch.cuda.max_memory_allocated(),
                events=event_rows(loop.log),
                computations=sum(attempts.values()), attempts=attempts)
     if not all(math.isfinite(x) for x in losses):
@@ -1939,11 +2023,11 @@ def witness_flash(cfg, kernel_run, arch) -> None:
     kernel = attention.flash_attention
     use_flash = [False]
 
-    def switch(q, k, v, causal, window, softcap):
+    def switch(q, k, v, causal, window, softcap, scale=None):
         if use_flash[0]:
             return kernel(q, k, v, causal=causal, window=window,
-                          softcap=softcap)
-        return _ref_fwd(q, k, v, causal, window, softcap)
+                          softcap=softcap, scale=scale)
+        return _ref_fwd(q, k, v, causal, window, softcap, scale)
 
     pairs = []
 
@@ -2000,11 +2084,13 @@ def witness_flash(cfg, kernel_run, arch) -> None:
 def check_async_launches(run, arch, compress=()) -> None:
     """Flash twice per attention block per gradient computation (forward
     and remat's recompute), each ``compress`` kernel once per sched layer
-    per accepted push, nothing else."""
+    per accepted push, AdamW once per sched layer per commit of the
+    server, nothing else."""
     kinds = arch.layer_kinds()
     attn = sum(k in ("global_attn", "local_attn") for k in kinds)
     want = {name: 0 for name in run["counts"]}
     want["flash_attention_fwd"] = 2 * attn * run["computations"]
+    want["adamw"] = (arch.num_layers + 2) * run["commits"]
     for name in compress:
         want[name] = (arch.num_layers + 2) * len(run["losses"])
     if run["counts"] != want:
@@ -2551,9 +2637,9 @@ def run_pipeline_path(config, segments, phase: str) -> dict:
     """Build ``config``'s pipeline on the card and run STEPS steps: the
     partition against ``segments``, flash 3 times an attention block and
     micro-batch (the forward, the stage's recompute, the VJP's recompute),
-    on an MoE the position kernel 3 times a block and micro-batch, and no
-    other kernel, no collective and no process group, the ledger
-    against its formula, finite losses, and the peak against 4 copies of
+    on an MoE the position kernel 3 times a block and micro-batch, AdamW
+    once a layer's buffer a step, and no other kernel, no collective and
+    no process group, the ledger against its formula, finite losses, and the peak against 4 copies of
     the parameters (parameters, mu, nu, gradient accumulators) +
     PIPELINE_ACTIVATION_GIB + 1 GiB."""
     from repro_torch.dist.collectives import collective_counts
@@ -2592,11 +2678,13 @@ def run_pipeline_path(config, segments, phase: str) -> dict:
     flash = 3 * attn * tr.num_microbatches * STEPS
     routes = 3 * arch.num_layers * tr.num_microbatches * STEPS \
         if arch.is_moe else 0
+    updates = STEPS * len(tr.specs) if config.optimizer == "adamw" else 0
     if counts.pop("flash_attention_fwd") != flash or \
-            counts.pop("moe_positions") != routes or any(counts.values()):
+            counts.pop("moe_positions") != routes or \
+            counts.pop("adamw") != updates or any(counts.values()):
         raise AssertionError(f"{phase}: launches {launch_counts()}, want "
-                             f"flash {flash}, moe_positions {routes} and "
-                             f"nothing else")
+                             f"flash {flash}, moe_positions {routes}, adamw "
+                             f"{updates} and nothing else")
     led, want = rt.ledger, pipeline_ledger_formula(tr, STEPS)
     if {k: led[k] for k in want} != want or \
             led["boundary_pull_bytes"].keys() != {0, -1}:
@@ -3699,16 +3787,18 @@ def phase_verify(smi: str) -> None:
     attn = sum(k in ("global_attn", "local_attn")
                for k in arch.layer_kinds())
     flash = 3 * attn * (info["microbatches"] + 1)
+    updates = info["steps_run"] * len(specs)
     if any(info["collectives"].values()) or \
             counts.pop("flash_attention_fwd") != flash or \
-            any(counts.values()):
+            counts.pop("adamw") != updates or any(counts.values()):
         raise AssertionError(f"verify pipeline: {info['collectives']}, "
-                             f"flash {flash} and nothing else wanted, "
-                             f"other launches {counts}")
+                             f"flash {flash}, adamw {updates} and nothing "
+                             f"else wanted, other launches {counts}")
     say("verify", f"pipeline: every stage trace empty, partition "
                   f"{info['partition']['segments']}; flash {flash} == 3 x "
                   f"{attn} blocks x ({info['microbatches']} micro-batches "
-                  f"of the step + 1 of the stage traces), no other kernel")
+                  f"of the step + 1 of the stage traces), adamw {updates} "
+                  f"(a layer's buffer a step), no other kernel")
 
     cfgs = ROOT / "examples" / "runtime_configs"
     for name in SMOKE_CONFIGS:
@@ -3885,8 +3975,10 @@ def phase_configs() -> None:
     pipeline = train_main(["--config", str(cfgs / "pipeline.json"),
                            "--steps", str(STEPS), "--log-every", "0"])
     counts = launch_counts()
-    if min(counts.values()) < 1:
-        raise AssertionError(f"a kernel never ran in the configs: {counts}")
+    # no smoke config has experts: the MoE position kernel runs in phase moe
+    if counts.pop("moe_positions") != 0 or min(counts.values()) < 1:
+        raise AssertionError(f"a kernel never ran in the configs, or the "
+                             f"MoE's ran: {counts}")
     if ps["none"] != zero:
         raise AssertionError(f"ps.json losses {ps['none']} != zero.json "
                              f"{zero}: sync PS is the ZeRO step")
@@ -4068,10 +4160,11 @@ def loop_by_hand(cfg) -> list:
     return losses
 
 
-def flash_only(counts: dict, n: int) -> None:
-    """``counts`` hold ``n`` flash launches and no other kernel's."""
-    want = {name: (n if name == "flash_attention_fwd" else 0)
-            for name in counts}
+def flash_only(counts: dict, n: int, adamw: int = 0) -> None:
+    """``counts`` hold ``n`` flash launches, ``adamw`` AdamW updates and
+    no other kernel's."""
+    want = {name: 0 for name in counts}
+    want.update(flash_attention_fwd=n, adamw=adamw)
     if counts != want:
         raise AssertionError(f"launches {counts} != {want}")
 
@@ -4095,6 +4188,7 @@ def reckon_loop_peak(cfg) -> dict:
 
 
 def train_loop_on_the_card(smi: str) -> dict:
+    from repro_torch import tree
     from repro_torch.configs import get_config
     cfg = get_config(MAIN["arch"])
     reckon = reckon_loop_peak(cfg)
@@ -4105,7 +4199,8 @@ def train_loop_on_the_card(smi: str) -> dict:
                 f"reckoned {reckon['total'] / 2**30:.2f} GiB (4 fp32 copies "
                 f"{reckon['weights'] / 2**30:.2f})")
     run = loop_run(cfg)
-    flash_only(run["counts"], STEPS * cfg.num_layers)
+    updates = STEPS * len(tree.leaves(run["params"]))
+    flash_only(run["counts"], STEPS * cfg.num_layers, updates)
     by_hand = loop_by_hand(cfg)
     if run["losses"] != by_hand:
         raise AssertionError(f"TrainLoop losses {run['losses']} != "
@@ -4124,7 +4219,7 @@ def train_loop_on_the_card(smi: str) -> dict:
     losses = run["losses"]
     del run
     acc = loop_run(cfg, accum=2)
-    flash_only(acc["counts"], 2 * STEPS * cfg.num_layers)
+    flash_only(acc["counts"], 2 * STEPS * cfg.num_layers, updates)
     gap = max(abs(a - b) / abs(b) for a, b in zip(acc["losses"], losses))
     if gap > ACCUM_RTOL:
         raise AssertionError(f"accum_steps=2 losses {acc['losses']} vs "
@@ -4470,6 +4565,14 @@ def computations(rt) -> int:
     return sum(state.attempts.values()) if state is not None else 0
 
 
+def commits(rt) -> int:
+    """Optimizer steps a runtime's parameter server has committed (its
+    version; 0 where the runtime has no server)."""
+    loop = getattr(rt.trainer, "trainer", rt.trainer)
+    server = getattr(loop, "server", None)
+    return server.version if server is not None else 0
+
+
 def count_gap(after: dict, before: dict) -> dict:
     return {k: n - before.get(k, 0) for k, n in after.items()}
 
@@ -4497,11 +4600,13 @@ class ExampleRecorder:
 
             def recorded_fit(steps, **kw):
                 before, made = launch_counts(), computations(rt)
+                committed = commits(rt)
                 out = fit(steps, **kw)
                 self.fits.append(dict(
                     rt=rt, units=len(out), losses=list(out),
                     counts=count_gap(launch_counts(), before),
-                    computations=computations(rt) - made))
+                    computations=computations(rt) - made,
+                    commits=commits(rt) - committed))
                 return out
             rt.fit = recorded_fit
             return rt
@@ -4538,26 +4643,32 @@ def launches_of_fits(fits) -> dict:
     """What an example's ``fit`` calls should launch, from each runtime's
     own plans: ``expected_launches`` a synchronous step, the plan sequence
     of the re-planning runtimes (``launches_of_plans`` over their events),
-    3 flash a block and micro-batch a pipeline step, and 2 flash a block a
-    gradient computation of the async runtimes."""
+    3 flash a block and micro-batch a pipeline step, 2 flash a block a
+    gradient computation of the async runtimes, and under AdamW one
+    update a sched layer's buffer a step or a commit of the server."""
     total: dict = {}
     runtimes = {id(f["rt"]): f["rt"] for f in fits}
     for key, rt in runtimes.items():
-        units = sum(f["units"] for f in fits if id(f["rt"]) == key)
-        made = sum(f["computations"] for f in fits if id(f["rt"]) == key)
+        mine = [f for f in fits if id(f["rt"]) == key]
+        units = sum(f["units"] for f in mine)
+        made = sum(f["computations"] for f in mine)
         name, arch = rt.config.runtime, rt.arch
+        adamw = rt.config.optimizer == "adamw"
+        layers = arch.num_layers + 2 if adamw else 0
         if name in ("zero", "ps"):
-            want = expected_launches(rt.plan, arch, (), units)
+            want = expected_launches(rt.plan, arch, (), units, adamw)
         elif name in ("dynamic", "dynamic-ps"):
             every = rt.config.schedule.reschedule_every
             want = launches_of_plans(
                 [(e.plan, min(every, units - e.epoch * every))
-                 for e in rt.events], arch)
+                 for e in rt.events], arch, (), adamw)
         elif name == "pipeline":
             want = {"flash_attention_fwd": 3 * attention_blocks(arch)
-                    * rt.trainer.num_microbatches * units}
+                    * rt.trainer.num_microbatches * units,
+                    "adamw": layers * units}
         else:
-            want = {"flash_attention_fwd": 2 * attention_blocks(arch) * made}
+            want = {"flash_attention_fwd": 2 * attention_blocks(arch) * made,
+                    "adamw": layers * sum(f["commits"] for f in mine)}
         for k, n in want.items():
             total[k] = total.get(k, 0) + n
     return total

@@ -15,10 +15,13 @@ are built at first use by :mod:`repro_torch.kernels._build`.
 * ``moe_positions`` — each MoE assignment's position inside its expert, and
   the dispatch slot and keep flag after it (no TPU kernel: XLA fuses the
   reference's one-hot cumulative sum).
+* ``adamw`` — AdamW's update of one flat buffer in one pass (no TPU kernel:
+  XLA fuses the reference's elementwise update).
 """
 
 from typing import Dict
 
+from repro_torch.kernels.adamw import ops as _adamw_ops
 from repro_torch.kernels.bucket_pack import ops as _bucket_ops
 from repro_torch.kernels.compress import ops as _compress_ops
 from repro_torch.kernels.flash_attention import ops as _flash_ops
@@ -26,7 +29,8 @@ from repro_torch.kernels.moe_positions import ops as _moe_ops
 from repro_torch.kernels.rglru_scan import ops as _rglru_ops
 
 _COUNTERS = (_bucket_ops.LAUNCHES, _flash_ops.LAUNCHES,
-             _compress_ops.LAUNCHES, _rglru_ops.LAUNCHES, _moe_ops.LAUNCHES)
+             _compress_ops.LAUNCHES, _rglru_ops.LAUNCHES, _moe_ops.LAUNCHES,
+             _adamw_ops.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

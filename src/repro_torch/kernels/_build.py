@@ -23,7 +23,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("bucket_pack", "compress", "flash_attention", "rglru_scan",
-           "moe_positions")
+           "moe_positions", "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -7,6 +7,13 @@ at full width that is what lets master weights and both AdamW moments
 (3 × 10 GB for granite-3-2b) share the card with the step.  It returns the
 same list objects it was given.  A ``None`` gradient leaves its buffer as
 it is.
+
+AdamW updates each buffer through ``kernels/adamw``: one CUDA launch where
+the buffer is on the card (a buffer the kernel cannot update in place
+raises), the plain loop on the CPU and for the dry runs' fake tensors,
+bitwise alike on the card.  While a profiler records, the counters
+``optim.buffers`` (buffers updated with a gradient) and ``optim.fused``
+(those the kernel updated) say how often the kernel engaged.
 """
 
 from __future__ import annotations
@@ -16,6 +23,9 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import tracing
+from repro_torch.kernels.adamw import adamw_update
 
 Buffers = List[torch.Tensor]
 
@@ -80,18 +90,16 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         # bias corrections in fp32, as the reference computes them
         b1c = float(np.float32(1.0) - np.float32(b1) ** step)
         b2c = float(np.float32(1.0) - np.float32(b2) ** step)
+        buffers = fused = 0
         for g, p, m, v in zip(grads, params, state.mu, state.nu):
             if g is None:
                 continue
-            g = g.float()
-            # the reference's b1 * m + (1 - b1) * g, op for op: bitwise
-            m.mul_(b1).add_(g * (1 - b1))
-            v.mul_(b2).add_(g.square().mul_(1 - b2))
-            step_dir = (m / b1c).div_((v / b2c).sqrt_().add_(eps))
-            if weight_decay:
-                step_dir.add_(p.float(), alpha=weight_decay)
-            p.sub_(step_dir.mul_(lr).to(p.dtype))
-            del step_dir
+            buffers += 1
+            fused += adamw_update(g, p, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
+                                  weight_decay=weight_decay, b1c=b1c,
+                                  b2c=b2c)
+        tracing.count("optim.buffers", buffers)
+        tracing.count("optim.fused", fused)
         return params, state
 
     return Optimizer(init=init, update=update)

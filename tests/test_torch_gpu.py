@@ -7,7 +7,8 @@ where only PyTorch is installed:
 
 Each kernel is held against its plain PyTorch version on the same card
 tensors: pack / unpack, the four compression kernels, the RG-LRU scan and
-its fused backward and the MoE position kernel bitwise, flash attention at
+its fused backward, the MoE position kernel and the AdamW update bitwise,
+flash attention at
 the reference's tolerances
 (atol 2e-6 in f32, 2e-2 in bf16).  The model families without a kernel of
 their own (xLSTM, the audio and vision frontends) run on the card against
@@ -23,6 +24,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.adamw import ops as adamw_ops
+from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.kernels.bucket_pack import ops, ref
 from repro_torch.kernels.compress import ops as compress_ops
 from repro_torch.kernels.compress import ref as compress_ref
@@ -160,7 +163,167 @@ def test_zero_smoke_config_runs_through_the_kernels(cuda):
         "flash_attention_fwd": 2 * 2 * rt.arch.num_layers,
         "compress_quantize": 0, "compress_dequantize": 0,
         "compress_sparsify": 0, "compress_densify": 0, "rglru_scan": 0,
-        "rglru_scan_bwd": 0, "moe_positions": 0}
+        "rglru_scan_bwd": 0, "moe_positions": 0,
+        "adamw": 2 * len(rt.trainer.specs)}
+
+
+def _bias_corrections(t):
+    step = np.float32(t)
+    return (float(np.float32(1.0) - np.float32(0.9) ** step),
+            float(np.float32(1.0) - np.float32(0.999) ** step))
+
+
+def _assert_same_bits(got, want, what):
+    differ = int((_bits(got) != _bits(want)).sum())
+    assert differ == 0, (f"{what}: {differ} of {got.numel()} elements differ "
+                         f"from the plain loop")
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (1025, 0),
+                                      (4194307, 0), (1025, 1)])
+def test_adamw_kernel_bitwise_vs_plain(cuda, n, offset, weight_decay):
+    """Five steps from zero moments, the kernel against ``ref.py`` on the
+    same card tensors; ``offset`` 1 puts every buffer one element past a
+    16-byte boundary (the scalar path).  Gradients span eight orders of
+    magnitude, with exact zeros among them."""
+    gen = torch.Generator(device=cuda).manual_seed(n + offset)
+
+    def buf():
+        return torch.empty(n + offset, device=cuda)[offset:]
+
+    p = buf().normal_(generator=gen)
+    kernel = [p, buf().zero_(), buf().zero_()]
+    plain = [x.clone() for x in kernel]
+    for t in range(1, 6):
+        g = buf().normal_(generator=gen)
+        g.mul_(torch.empty_like(g).uniform_(-20, 6, generator=gen).exp2_())
+        g[::7] = 0.0
+        b1c, b2c = _bias_corrections(t)
+        args = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8,
+                    weight_decay=weight_decay, b1c=b1c, b2c=b2c)
+        reset_launch_counts()
+        assert adamw_ops.adamw_update(g, *kernel, **args) is True
+        assert launch_counts()["adamw"] == 1
+        adamw_ref.adamw_update_ref(g, *plain, **args)
+        for got, want, what in zip(kernel, plain, "pmv"):
+            _assert_same_bits(got, want, f"step {t}, {what}")
+
+
+def test_adamw_kernel_skips_a_none_gradient(cuda):
+    from repro_torch.optim import adamw
+    opt = adamw(3e-4, weight_decay=0.01)
+    params = [torch.randn(1025, device=cuda), torch.randn(64, device=cuda)]
+    kept = params[1].clone()
+    state = opt.init(params)
+    reset_launch_counts()
+    for _ in range(3):
+        opt.update([torch.randn(1025, device=cuda), None], state, params)
+    assert launch_counts()["adamw"] == 3
+    _assert_same_bits(params[1], kept, "skipped buffer")
+    assert not state.mu[1].any() and not state.nu[1].any()
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+def test_adamw_kernel_takes_a_transposed_gradient_bitwise(cuda,
+                                                          weight_decay):
+    """A gradient that is not contiguous (a transposed weight's) reaches
+    the kernel as a contiguous copy, bitwise the plain loop; a strided
+    moment is refused, not sent to the plain loop."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    p = torch.randn(96, 40, device=cuda, generator=gen)
+    kernel = [p, torch.zeros_like(p), torch.zeros_like(p)]
+    plain = [x.clone() for x in kernel]
+    for t in range(1, 4):
+        g = torch.randn(40, 96, device=cuda, generator=gen).t()
+        assert not g.is_contiguous()
+        b1c, b2c = _bias_corrections(t)
+        args = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8,
+                    weight_decay=weight_decay, b1c=b1c, b2c=b2c)
+        reset_launch_counts()
+        assert adamw_ops.adamw_update(g, *kernel, **args) is True
+        assert launch_counts()["adamw"] == 1
+        adamw_ref.adamw_update_ref(g, *plain, **args)
+        for got, want, what in zip(kernel, plain, "pmv"):
+            _assert_same_bits(got, want, f"step {t}, {what}")
+    strided = torch.zeros(40, 96, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous float32"):
+        adamw_ops.adamw_update(g, p, strided, kernel[2], **args)
+
+
+def _plain_adamw(lr):
+    """AdamW whose every buffer goes through ``kernels/adamw/ref.py``: the
+    loop the kernel replaced, with ``adamw().update``'s bias
+    corrections."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import Optimizer
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        state.step.add_(1)
+        b1c, b2c = _bias_corrections(int(state.step))
+        for g, p, m, v in zip(grads, params, state.mu, state.nu):
+            if g is not None:
+                adamw_ref.adamw_update_ref(g, p, m, v, lr=lr, b1=0.9,
+                                           b2=0.999, eps=1e-8,
+                                           weight_decay=0.0, b1c=b1c,
+                                           b2c=b2c)
+        return params, state
+
+    return Optimizer(init=adamw(lr).init, update=update)
+
+
+def test_zero_smoke_steps_through_the_adamw_kernel_are_bitwise_the_loop(
+        cuda):
+    """Three ZeRO steps of the smoke config with the kernel, then with the
+    plain loop from the same seed: losses, shards and both moments
+    bitwise; one launch a shard a step, none on the plain run."""
+    from repro_torch.runtime import RuntimeConfig, build_runtime
+    config = RuntimeConfig.load(os.path.join(
+        ROOT, "examples", "runtime_configs", "zero.json"))
+    assert config.optimizer == "adamw"
+    runs = []
+    for plain in (False, True):
+        rt = build_runtime(config)
+        if plain:
+            rt.trainer.optimizer = _plain_adamw(config.lr)
+        reset_launch_counts()
+        try:
+            losses = rt.fit(3)
+        finally:
+            torch.distributed.destroy_process_group()
+        state = rt._state
+        runs.append(dict(losses=list(losses),
+                         launches=launch_counts()["adamw"],
+                         shards=state["flat_params"], mu=state["opt"].mu,
+                         nu=state["opt"].nu))
+    fused, loop = runs
+    assert fused["launches"] == 3 * len(fused["shards"])
+    assert loop["launches"] == 0
+    assert fused["losses"] == loop["losses"]
+    for key in ("shards", "mu", "nu"):
+        for i, (a, b) in enumerate(zip(fused[key], loop[key])):
+            _assert_same_bits(a, b, f"{key}[{i}]")
+
+
+def test_adamw_counters_read_every_buffer_fused_on_the_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.optim import adamw
+    opt = adamw(3e-4)
+    params = [torch.randn(n, device=cuda) for n in (1025, 4, 7)]
+    state = opt.init(params)
+    tracing.reset_counters()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                opt.update([torch.randn_like(params[0]), None,
+                            torch.randn_like(params[2])], state, params)
+        c = tracing.counters()
+    finally:
+        tracing.reset_counters()
+    assert c == {"optim.buffers": 4, "optim.fused": 4}
 
 
 def _bits(x):
@@ -419,7 +582,7 @@ def test_hybrid_smoke_config_runs_through_the_scan_kernel(cuda):
         "compress_quantize": 0, "compress_dequantize": 0,
         "compress_sparsify": 0, "compress_densify": 0,
         "rglru_scan": 2 * 2 * 2, "rglru_scan_bwd": 2 * 2,
-        "moe_positions": 0}
+        "moe_positions": 0, "adamw": 2 * len(rt.trainer.specs)}
 
 
 # Card against CPU for the reduced recurrentgemma-2b zero run, 3 steps from
@@ -671,6 +834,7 @@ def test_pipeline_smoke_config_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert gap <= CARD_CPU_RTOL
     flash = 3 * 3 * card_rt.arch.num_layers * config.pipeline.microbatches
     assert counts.pop("flash_attention_fwd") == flash
+    assert counts.pop("adamw") == 3 * len(card_rt.trainer.specs)
     assert not any(counts.values()), counts
     assert not torch.distributed.is_initialized()
 
@@ -1301,10 +1465,11 @@ def test_reduced_serving_on_the_card_matches_the_cpu(cuda, name, prompt,
     assert gap <= SMOKE.SERVE_CARD_CPU_ATOL
 
 
-def _flash_only(n):
+def _flash_only(n, adamw=0):
     counts = launch_counts()
-    assert counts == {k: (n if k == "flash_attention_fwd" else 0)
-                      for k in counts}
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=n, adamw=adamw)
+    assert counts == want
 
 
 def test_stacked_step_on_the_card_equals_the_unrolled_step(cuda):
@@ -1382,7 +1547,7 @@ def test_train_loop_on_the_card(cuda, capsys):
     params, _, losses = TrainLoop(cfg=cfg, optimizer=adamw(3e-4),
                                   log_every=1).run(
         torch.Generator(device=cuda).manual_seed(0), iter(pipe), 3)
-    _flash_only(3 * cfg.num_layers)
+    _flash_only(3 * cfg.num_layers, 3 * len(tree.leaves(params)))
     assert all(x.is_cuda for x in tree.leaves(params))
     assert len(capsys.readouterr().out.splitlines()) == 3
     p = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
@@ -1410,8 +1575,8 @@ def test_examples_on_the_card_print_the_cpu_text(cuda, name):
     their losses and served prefill logits agree; the card's kernels
     launched as the path asks — reduced gemma2-2b's prefill one flash a
     block and its decode none; edge_training's 6 ZeRO steps under its
-    1 / 1 bucket plan a pack a bucket, an unpack a pull bucket and 2
-    flash a block a step."""
+    1 / 1 bucket plan a pack a bucket, an unpack a pull bucket, 2 flash
+    a block and an AdamW update a sched layer's buffer (4) a step."""
     out = SMOKE.example_twin(name)
     counts = out["counts"]
     want = {k: 0 for k in counts}
@@ -1419,7 +1584,8 @@ def test_examples_on_the_card_print_the_cpu_text(cuda, name):
         want["flash_attention_fwd"] = 2
         assert out["logits"] <= SMOKE.SERVE_CARD_CPU_ATOL
     else:
-        want.update(bucket_pack=12, bucket_unpack=6, flash_attention_fwd=24)
+        want.update(bucket_pack=12, bucket_unpack=6, flash_attention_fwd=24,
+                    adamw=24)
         assert out["losses"] >= 6 and out["fits"] <= SMOKE.CARD_CPU_RTOL
     assert counts == want
 
