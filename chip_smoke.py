@@ -100,6 +100,12 @@ Phases, each printed as it runs; any failure raises and exits non-zero:
    rtol 1e-5; gpipe against 1f1b bitwise at 4 blocks); then a reduced MoE
    that drops tokens under ``zero.json`` and ``pipeline.json`` on the card
    against the port on the CPU;
+   ``mla``: 3 ``zero`` steps of Moonlight-16B-A3B cut to 3 layers of
+   d_model 1024 (the dense layer 0, two MoE layers of 4 experts), its
+   latent attention at the published widths (16 heads, q / k 192, v 128,
+   a latent of 512) under the DynaComm plan: launches against the plan,
+   every flash launch the 192 / 128 template's (the launches of the
+   record ``flash_attention_fwd@mla``);
 11. ``families``: the last model families at their published widths.
    xlstm-350m (24 layers: 21 mLSTM, 3 sLSTM; d_model 1024, 4 heads, the
    mLSTM's head dim 512, vocab 50304, tied head): the mLSTM's parallel
@@ -277,6 +283,10 @@ PIPELINE_SEGMENTS = ((1, 22), (23, 42))   # S = 2 at 1e10 FLOP/s
 PIPELINE_ACTIVATION_GIB = 2.0
 PIPELINE_WITNESS_LAYERS = 4   # the bitwise witness's one cut: depth
 MOE = dict(MAIN, arch="granite-moe-1b-a400m")
+# Moonlight-16B-A3B's latent attention at its published widths on a cut
+# model: the dense layer 0 and two MoE layers of 4 experts
+MLA = dict(MAIN, arch="moonlight-16b-a3b")
+MLA_LAYERS, MLA_D_MODEL, MLA_VOCAB = 3, 1024, 8192
 MOE_STRATEGIES = ("sequential", "lbl", "ibatch")   # beside main's dynacomm
 MOE_PIPELINE_SEGMENTS = ((1, 14), (15, 26))   # S = 2 at 1e10 FLOP/s
 # the ZeRO step holds ~6 copies of the parameters at its peak (main: 55.89
@@ -420,6 +430,8 @@ REPLACES = {
     "rglru_scan@serve": "src/repro/kernels/rglru_scan/rglru_scan.py:60",
     "flash_attention_fwd@gemma2":
         "src/repro/kernels/flash_attention/flash_attention.py:111",
+    "flash_attention_fwd@mla":
+        "src/repro/kernels/flash_attention/flash_attention.py:111",
 }
 SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
            "bucket_unpack": "src/repro_torch/csrc/bucket_pack.cu",
@@ -440,6 +452,8 @@ SOURCES = {"bucket_pack": "src/repro_torch/csrc/bucket_pack.cu",
                "src/repro_torch/csrc/flash_attention.cu",
            "rglru_scan@serve": "src/repro_torch/csrc/rglru_scan.cu",
            "flash_attention_fwd@gemma2":
+               "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_fwd@mla":
                "src/repro_torch/csrc/flash_attention.cu"}
 PORT_KERNELS = ("copy_chunks_kernel", "flash_fwd_kernel",    # csrc/*.cu
                 "quantize_pack_kernel", "dequantize_unpack_kernel",
@@ -812,7 +826,12 @@ def check_flash(gen, dev, arch) -> dict:
         hybrid = get_config(HYBRID["arch"])
         rec256 = time_flash(gen, dev, hybrid, hybrid.sliding_window,
                             "hybrid")
-    return {"flash_attention_fwd": rec, "flash_attention_fwd@hd256": rec256}
+        # latent attention's (the Moonlight cell's call): q / k 192 and v
+        # 128, the 192 / 128 template
+        rec_mla = time_flash(gen, dev, get_config("moonlight-16b-a3b"), 0,
+                             "MLA cell", b=2, t=4096)
+    return {"flash_attention_fwd": rec, "flash_attention_fwd@hd256": rec256,
+            "flash_attention_fwd@mla": rec_mla}
 
 
 def time_flash(gen, dev, arch, window: int, path: str,
@@ -820,19 +839,24 @@ def time_flash(gen, dev, arch, window: int, path: str,
                t: int = MAIN["seq"]) -> dict:
     """Flash forward at a path's shape, f32: checked, then timed beside
     its plain version, SDPA and its bound (the bound counts the
-    (query, key) pairs the mask keeps at the path's head dim)."""
+    (query, key) pairs the mask keeps: Q K^T at the path's head dim, P V
+    at v's, which latent attention narrows; q, k, v and o moved once)."""
     from repro_torch.kernels.flash_attention.ops import (_ref_fwd,
                                                          flash_attention)
     import torch.nn.functional as F
     h, hkv, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
+    hdv = arch.v_head_dim or hd
     q, k, v = _qkv(gen, dev, b, h, hkv, t, hd, torch.float32, True)
+    if hdv != hd:
+        v = torch.randn(b, t, hkv, hdv, generator=gen,
+                        device=dev).transpose(1, 2)
     err = (flash_attention(q, k, v, causal, window, 0.0)
            - _ref_fwd(q, k, v, causal, window, 0.0)).abs().max().item()
     if not err <= F32_ATOL:
         raise AssertionError(f"flash at the {path} path's shape: max abs "
                              f"err {err:.3g} > {F32_ATOL}")
-    flops = 4 * b * h * hd * live_pairs(t, causal, window)
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 2 * b * h * (hd + hdv) * live_pairs(t, causal, window)
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + b * h * t * hdv)
     t_ops = flops / PEAK_FLOPS[torch.float32] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     iters = 20
@@ -848,7 +872,7 @@ def time_flash(gen, dev, arch, window: int, path: str,
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     rec["tflops"] = flops / rec["ms"] / 1e9
     say("kernels", f"flash_attention_fwd at the {path} path's (B={b}, "
-               f"H={h}/{hkv}, T={t}, hd={hd}, "
+               f"H={h}/{hkv}, T={t}, hd={hd}, v {hdv}, "
                f"{'causal' if causal else 'non-causal'}, window {window}) "
                f"f32: max abs err {err:.3g}; {rec['tflops']:.2f} TFLOP/s = "
                f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound; "
@@ -1340,19 +1364,21 @@ def expected_launches(plan, arch, compress, steps: int = STEPS,
                       adamw: bool = True) -> dict:
     """Kernel launches over ``steps`` steps of a plan: one pack per bucket,
     one unpack per pull bucket, the flash forward twice per attention
-    block (forward and recompute), the RG-LRU scan twice per RG-LRU block
-    (forward and recompute) and its fused backward once, the MoE position
-    kernel twice per MoE block (forward and recompute), one launch of
+    or latent-attention block (forward and recompute), the RG-LRU scan
+    twice per RG-LRU block (forward and recompute) and its fused backward
+    once, the MoE position kernel twice per MoE block (forward and
+    recompute), one launch of
     each ``compress`` kernel per sched layer, and AdamW's update once per
     sched layer's buffer (none under SGD)."""
     kinds = arch.layer_kinds()
     per_step = {"bucket_pack": len(plan.forward) + len(plan.backward),
                 "bucket_unpack": len(plan.forward),
                 "flash_attention_fwd": 2 * sum(
-                    k in ("global_attn", "local_attn") for k in kinds),
+                    k in ("global_attn", "local_attn", "mla")
+                    for k in kinds),
                 "rglru_scan": 2 * kinds.count("rglru"),
                 "rglru_scan_bwd": kinds.count("rglru"),
-                "moe_positions": 2 * len(kinds) if arch.is_moe else 0}
+                "moe_positions": 2 * arch.mlp_kinds().count("moe")}
     layers = sum(len(b) for b in plan.backward)
     per_step["adamw"] = layers if adamw else 0
     for name in PS_SCHEMES[0][1] + PS_SCHEMES[1][1]:
@@ -3028,6 +3054,58 @@ def phase_moe(profile: bool, smi: str) -> tuple:
     moe_card_against_cpu()
     say("moe", f"phase {time.perf_counter() - t0:.1f} s; {smi}")
     return rec, counts
+
+
+def phase_mla(smi: str) -> int:
+    """STEPS ZeRO steps of Moonlight-16B-A3B cut to MLA_LAYERS layers of
+    d_model MLA_D_MODEL (the dense layer 0, then MoE layers), its latent
+    attention at the published widths, under the DynaComm plan: every
+    kernel's launches as the plan says, and every flash launch the
+    template of a narrower v.  Returns that template's launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.runtime import (RuntimeConfig, ScheduleConfig,
+                                     build_runtime)
+    full = get_config(MLA["arch"])
+    widths = {k: getattr(full, k) for k in (
+        "num_heads", "num_kv_heads", "head_dim", "kv_lora_rank",
+        "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim")}
+    arch = dataclasses.replace(full.reduced(
+        num_layers=MLA_LAYERS, d_model=MLA_D_MODEL, vocab=MLA_VOCAB),
+        **widths)
+    config = RuntimeConfig(**MLA, schedule=ScheduleConfig(
+        strategy="dynacomm"))
+    free_cuda()
+    rt = build_runtime(config, arch)
+    reset_launch_counts()
+    losses, secs = timed_steps(rt, STEPS)
+    counts = launch_counts()
+    narrow = ops.NARROW_V_LAUNCHES["flash_attention_fwd@mla"]
+    expect = expected_launches(rt.plan, arch, ())
+    if counts != expect:
+        raise AssertionError(f"mla: launches {counts} != expected {expect}")
+    if narrow != counts["flash_attention_fwd"] \
+            or narrow != 2 * MLA_LAYERS * STEPS:
+        raise AssertionError(f"mla: {narrow} launches of the narrow-v "
+                             f"template of {counts['flash_attention_fwd']} "
+                             f"flash launches, not 2 x {MLA_LAYERS} x "
+                             f"{STEPS}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mla: non-finite losses {losses}")
+    say("mla", f"{arch.num_layers} layers {arch.mlp_kinds()}, d_model "
+               f"{arch.d_model}, MLA {arch.num_heads} heads of q / k "
+               f"{arch.head_dim} and v {arch.v_head_dim} over a latent of "
+               f"{arch.kv_lora_rank}; batch {config.batch} x seq "
+               f"{config.seq}; losses {losses}; step seconds "
+               f"{[round(x, 4) for x in secs]}; launches over {STEPS} steps "
+               f"{counts} == plan, all {narrow} flash launches the 192 / "
+               f"128 template's; {smi}")
+    del rt
+    drop_group()
+    free_cuda()
+    return narrow
 
 
 # ---------------------------------------------------------------------------
@@ -5104,6 +5182,7 @@ def main(argv=None) -> None:
     timed("pipeline", phase_pipeline, args.profile, smi,
           main_run["losses"])
     moe_flash_rec, moe_counts = timed("moe", phase_moe, args.profile, smi)
+    mla_launches = timed("mla", phase_mla, smi)
     hubert_flash_rec, family_counts = timed("families", phase_families,
                                             args.profile, smi)
     serve_records, serve_counts = timed("serve", phase_serve, smi)
@@ -5157,6 +5236,9 @@ def main(argv=None) -> None:
     # record of its own
     records["flash_attention_fwd@gemma2"] = gemma2_record
     counts["flash_attention_fwd@gemma2"] = gemma2_launches
+    # latent attention's 192 / 128 template: its launches on the cut
+    # Moonlight's ZeRO step (phase mla)
+    counts["flash_attention_fwd@mla"] = mla_launches
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=counts[name],
                     **records[name]) for name in REPLACES]

@@ -13,6 +13,7 @@ from repro_torch.configs.grok_1_314b import CONFIG as _grok
 from repro_torch.configs.gemma2_2b import CONFIG as _gemma2
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _rgemma
 from repro_torch.configs.granite_4_0_h_small import CONFIG as _granite4h
+from repro_torch.configs.moonlight_16b_a3b import CONFIG as _moonlight
 
 ARCHITECTURES = {
     cfg.name: cfg
@@ -22,9 +23,10 @@ ARCHITECTURES = {
     )
 }
 
-# Architectures of the port alone (the reference package has no Mamba-2):
-# ``get_config`` finds them; ``ARCHITECTURES`` stays the reference's set.
-PORT_ARCHITECTURES = {cfg.name: cfg for cfg in (_granite4h,)}
+# Architectures of the port alone (the reference package has no Mamba-2 and
+# no latent attention): ``get_config`` finds them; ``ARCHITECTURES`` stays
+# the reference's set.
+PORT_ARCHITECTURES = {cfg.name: cfg for cfg in (_granite4h, _moonlight)}
 
 
 def get_config(name: str) -> ArchConfig:

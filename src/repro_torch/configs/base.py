@@ -13,7 +13,8 @@ from typing import Literal, Optional, Tuple
 
 Family = Literal["dense", "moe", "ssm", "vlm", "audio", "hybrid"]
 LayerKind = Literal["global_attn", "local_attn", "mlstm", "slstm", "rglru",
-                    "mamba2"]
+                    "mamba2", "mla"]
+MlpKind = Literal["dense", "moe", "none"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +57,24 @@ class ArchConfig:
     experts_first: int = 0
     experts_held: int = 0
     shared_d_ff: int = 0                     # a shared SwiGLU expert's width
+    # the router's scores: ``softmax``, or ``sigmoid`` (DeepSeek-V3's
+    # noaux_tc): the experts are the top k of sigmoid + a correction bias,
+    # weighted by their unshifted scores, normalised, times routed_scaling
+    router_scoring: Literal["softmax", "sigmoid"] = "softmax"
+    routed_scaling: float = 1.0
+    seq_aux: bool = False                    # the aux loss per sequence
+    # leading dense layers of an MoE model (first_k_dense_replace) and their
+    # MLP's width
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0
+
+    # latent attention (``mla`` layers): q / k heads of qk_nope + qk_rope
+    # (``head_dim``), v heads of v_head_dim; k's nope part and v are
+    # decompressed from a kv_lora_rank latent, the rope key is one head
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # SSM / hybrid
     rglru_lru_width: Optional[int] = None    # default d_model
@@ -98,6 +117,17 @@ class ArchConfig:
         pat = self.layer_pattern
         return tuple(pat[i % len(pat)] for i in range(self.num_layers))
 
+    def mlp_kinds(self) -> Tuple[MlpKind, ...]:
+        """Each layer's MLP: ``moe``, ``dense`` (every layer of a model
+        without experts, the leading ``first_dense_layers`` of one with
+        them) or ``none`` (``d_ff`` 0: xLSTM blocks carry their own)."""
+        def kind(i: int) -> MlpKind:
+            if self.d_ff <= 0:
+                return "none"
+            return "moe" if self.is_moe and i >= self.first_dense_layers \
+                else "dense"
+        return tuple(kind(i) for i in range(self.num_layers))
+
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
@@ -137,6 +167,10 @@ class ArchConfig:
         mamba = dict(mamba_heads=4, mamba_head_dim=d_model // 2,
                      mamba_d_state=16, mamba_chunk=16) \
             if self.mamba_heads else {}
+        # MLA: a latent of d_model / 4, q / k heads of 16 + 8, v heads of 16
+        mla = dict(kv_lora_rank=d_model // 4, qk_nope_head_dim=16,
+                   qk_rope_head_dim=8, v_head_dim=16, head_dim=24) \
+            if self.kv_lora_rank else dict(head_dim=d_model // heads)
         return dataclasses.replace(
             self,
             name=f"{self.name}-smoke",
@@ -144,8 +178,9 @@ class ArchConfig:
             d_model=d_model,
             num_heads=heads,
             num_kv_heads=kv,
-            head_dim=d_model // heads,
             d_ff=max(d_model * 2, 64) if self.d_ff else 0,
+            dense_d_ff=d_model * 4 if self.dense_d_ff else 0,
+            first_dense_layers=min(self.first_dense_layers, 1),
             vocab_size=vocab,
             num_experts=experts,
             top_k=top_k,
@@ -153,6 +188,7 @@ class ArchConfig:
             experts_held=0,
             shared_d_ff=d_model if self.shared_d_ff else 0,
             **mamba,
+            **mla,
             sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
             rglru_lru_width=d_model if self.rglru_lru_width else None,
             num_vision_tokens=min(self.num_vision_tokens, 16),

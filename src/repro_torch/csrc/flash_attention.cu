@@ -37,6 +37,11 @@
 //    threads (102 KB, two blocks an SM); hd 128 64-query blocks of 128
 //    (115 KB); hd 256 64-query blocks of 256 (211 KB, one an SM).  Blocks
 //    start with the longest causal rows first.
+//  * Latent attention (MLA) reads q and k of 192 (128 without positions,
+//    64 with rope) and v of 128: a template of its own computes Q K^T over
+//    192 columns and P V and O over 128 (HD = 192, HDV = 128; 64-query
+//    blocks of 128 threads, the S micro-tile of hd 128's, 147 KB).  Every
+//    other instance has HDV = HD.
 //  * Kept from the first kernel: one block per (batch*head, query tile), m,
 //    l and the output in registers; dead kv tiles skipped as the TPU kernel
 //    skips them (causal: k_lo > q_hi; window: k_hi - 1 <= q_lo - window);
@@ -75,19 +80,20 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// The tiles of one head-dim template: BQ queries a block, an MR x MC
-// micro-tile of S and an 8 x 8 micro-tile of O a thread.
-template <int HD_, int BQ_, int MR_, int MC_>
+// The tiles of one head-dim template: q and k of HD, v and o of HDV, BQ
+// queries a block, an MR x MC micro-tile of S and an 8 x 8 micro-tile of O
+// a thread.
+template <int HD_, int HDV_, int BQ_, int MR_, int MC_>
 struct Cfg {
-  static constexpr int HD = HD_, BQ = BQ_, MR = MR_, MC = MC_;
-  static constexpr int TY = BQ / 8;         // O rows of a thread: ro + TY*i
-  static constexpr int NT = TY * (HD / 8);  // threads: one O micro-tile each
+  static constexpr int HD = HD_, HDV = HDV_, BQ = BQ_, MR = MR_, MC = MC_;
+  static constexpr int TY = BQ / 8;          // O rows of a thread: ro + TY*i
+  static constexpr int NT = TY * (HDV / 8);  // threads: one O micro-tile each
   static constexpr int SY = BQ / MR;        // S rows of a thread: ty + SY*i
   static constexpr int SX = BK / MC;        // S columns: tx + SX*j
   static constexpr int QS = HD + 4;         // row stride of Qs / Ks (floats)
   static constexpr int PS = BK + 4;         // row stride of Ps
   static constexpr int SMEM_FLOATS =
-      BQ * QS + BK * QS + BK * HD + BQ * PS + BQ;
+      BQ * QS + BK * QS + BK * HDV + BQ * PS + BQ;
   static_assert(SY * SX == NT, "S and O micro-tiles must match");
   static_assert(SX >= 8 && SX <= 32, "a row's lanes: 8 to 32 of one warp");
 };
@@ -136,28 +142,28 @@ __device__ __forceinline__ float comp(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-template <typename T, int HD, int BQ, int MR, int MC>
-__global__ void __launch_bounds__(Cfg<HD, BQ, MR, MC>::NT)
+template <typename T, int HD, int HDV, int BQ, int MR, int MC>
+__global__ void __launch_bounds__(Cfg<HD, HDV, BQ, MR, MC>::NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int H,
-                 int n_rep, int Tq, int Tk, int hd, Strides sq, Strides sk,
-                 Strides sv, Strides so, float scale, float softcap,
-                 int causal, int window, int vec) {
-  using C = Cfg<HD, BQ, MR, MC>;
+                 int n_rep, int Tq, int Tk, int hd, int hdv, Strides sq,
+                 Strides sk, Strides sv, Strides so, float scale,
+                 float softcap, int causal, int window, int vec) {
+  using C = Cfg<HD, HDV, BQ, MR, MC>;
   constexpr int TY = C::TY, SY = C::SY, SX = C::SX, QS = C::QS, PS = C::PS,
                 NT = C::NT;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * QS;
   float* Vs = Ks + BK * QS;
-  float* Ps = Vs + BK * HD;
+  float* Ps = Vs + BK * HDV;
   float* Rs = Ps + BQ * PS;  // per row: the tile's rescale, at the end l
 
   const int tid = threadIdx.x;
   // S layout: tx (columns tx + SX*j) in the low lane bits, ty (rows)
   const int tx = tid % SX, ty = tid / SX;
-  // O layout: rows ro + TY*i, columns 4co.. 4co + 3 and HD/2 + 4co..
-  const int co = tid % (HD / 8), ro = tid / (HD / 8);
+  // O layout: rows ro + TY*i, columns 4co.. 4co + 3 and HDV/2 + 4co..
+  const int co = tid % (HDV / 8), ro = tid / (HDV / 8);
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
@@ -188,7 +194,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, BQ, HD, QS, NT>(Qs, qb, sq.t, q_lo, Tq, hd, vec);
     load_tile<T, BK, HD, QS, NT>(Ks, kb, sk.t, kt_lo * BK, Tk, hd, vec);
     cp_async_commit();
-    load_tile<T, BK, HD, HD, NT>(Vs, vb, sv.t, kt_lo * BK, Tk, hd, vec);
+    load_tile<T, BK, HDV, HDV, NT>(Vs, vb, sv.t, kt_lo * BK, Tk, hdv, vec);
     cp_async_commit();
   }
 
@@ -278,7 +284,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float4 vv[2];
 #pragma unroll
         for (int c = 0; c < 2; ++c)
-          vv[c] = ld4(Vs + (kk + u) * HD + c * (HD / 2) + 4 * co);
+          vv[c] = ld4(Vs + (kk + u) * HDV + c * (HDV / 2) + 4 * co);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
           const float p = comp(pv[i], u);
@@ -294,7 +300,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();  // every thread is done with Vs, Ps and Rs
     if (kt + 1 < kt_hi)
-      load_tile<T, BK, HD, HD, NT>(Vs, vb, sv.t, k_lo + BK, Tk, hd, vec);
+      load_tile<T, BK, HDV, HDV, NT>(Vs, vb, sv.t, k_lo + BK, Tk, hdv, vec);
     cp_async_commit();
   }
 
@@ -309,53 +315,61 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(Rs[row], 1e-30f);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int d = (j / 4) * (HD / 2) + 4 * co + j % 4;
-      if (d < hd) ob[t * so.t + d] = from_f<T>(acc[i][j] / denom);
+      const int d = (j / 4) * (HDV / 2) + 4 * co + j % 4;
+      if (d < hdv) ob[t * so.t + d] = from_f<T>(acc[i][j] / denom);
     }
   }
 }
 
-template <typename T, int HD, int BQ, int MR, int MC>
+template <typename T, int HD, int HDV, int BQ, int MR, int MC>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int Hkv, int Tq, int Tk, int hd, const long long* st, float scale,
-           float softcap, int causal, int window, cudaStream_t stream) {
-  using C = Cfg<HD, BQ, MR, MC>;
+           int Hkv, int Tq, int Tk, int hd, int hdv, const long long* st,
+           float scale, float softcap, int causal, int window,
+           cudaStream_t stream) {
+  using C = Cfg<HD, HDV, BQ, MR, MC>;
   constexpr int bytes = C::SMEM_FLOATS * (int)sizeof(float);
   const int n_q = (Tq + BQ - 1) / BQ;
   if (n_q > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD, BQ, MR, MC>,
+      flash_fwd_kernel<T, HD, HDV, BQ, MR, MC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
       sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
   // cp.async moves 16 aligned bytes: f32 rows of 4-float multiples only
-  bool vec = std::is_same<T, float>::value && hd % 4 == 0 &&
+  bool vec = std::is_same<T, float>::value && hd % 4 == 0 && hdv % 4 == 0 &&
              (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
               reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   for (int i = 0; i < 9; ++i) vec = vec && st[i] % 4 == 0;
   dim3 grid(B * H, n_q);
-  flash_fwd_kernel<T, HD, BQ, MR, MC><<<grid, C::NT, bytes, stream>>>(
+  flash_fwd_kernel<T, HD, HDV, BQ, MR, MC><<<grid, C::NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), H, H / Hkv, Tq, Tk, hd,
-      sq, sk, sv, so, scale, softcap, causal, window, (int)vec);
+      hdv, sq, sk, sv, so, scale, softcap, causal, window, (int)vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
-                int H, int Hkv, int Tq, int Tk, int hd, const long long* st,
-                float scale, float softcap, int causal, int window,
-                cudaStream_t s) {
+                int H, int Hkv, int Tq, int Tk, int hd, int hdv,
+                const long long* st, float scale, float softcap, int causal,
+                int window, cudaStream_t s) {
+  if (hdv != hd) {  // a narrower v: the latent-attention template
+    if (hd <= 192 && hdv <= 128)
+      return launch<T, 192, 128, 64, 8, 4>(q, k, v, o, B, H, Hkv, Tq, Tk, hd,
+                                           hdv, st, scale, softcap, causal,
+                                           window, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (hd <= 64)
-    return launch<T, 64, 128, 8, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, st, scale,
-                             softcap, causal, window, s);
+    return launch<T, 64, 64, 128, 8, 8>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, hd,
+                                        st, scale, softcap, causal, window, s);
   if (hd <= 128)
-    return launch<T, 128, 64, 8, 4>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, st, scale,
-                              softcap, causal, window, s);
+    return launch<T, 128, 128, 64, 8, 4>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, hd,
+                                         st, scale, softcap, causal, window, s);
   if (hd <= 256)
-    return launch<T, 256, 64, 4, 4>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, st, scale,
-                              softcap, causal, window, s);
+    return launch<T, 256, 256, 64, 4, 4>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, hd,
+                                         st, scale, softcap, causal, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -363,16 +377,17 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int is_bf16, int B,
-    int H, int Hkv, int Tq, int Tk, int hd, const long long* strides,
-    float scale, float softcap, int causal, int window, void* stream) {
+    int H, int Hkv, int Tq, int Tk, int hd, int hdv,
+    const long long* strides, float scale, float softcap, int causal,
+    int window, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
-      hd <= 0 || (long long)B * H > 0x7fffffffLL)
+      hd <= 0 || hdv <= 0 || (long long)B * H > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, hd,
+    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, hdv,
                                       strides, scale, softcap, causal, window,
                                       s);
-  return dispatch_hd<float>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, strides, scale,
-                            softcap, causal, window, s);
+  return dispatch_hd<float>(q, k, v, o, B, H, Hkv, Tq, Tk, hd, hdv, strides,
+                            scale, softcap, causal, window, s);
 }

@@ -298,7 +298,8 @@ class ZeroTrainer:
                         g_block, ct_h = model_lib.layer_vjp(
                             lambda p, hh, _k=kind: model_lib.apply_train_block(
                                 cfg, p, hh, _k),
-                            (full[l], acts.pop(l)), (ct_h, aux_ct))
+                            (full[l], acts.pop(l)),
+                            (ct_h, model_lib.aux_cotangent(cfg, l, aux_ct)))
                         bucket_grads[l] = g_block
                     if l != 0:
                         full.pop(l, None)   # this layer's weights are done

@@ -42,7 +42,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for counter in _COUNTERS:
+    """Every count of ``launch_counts()`` and flash's count of the template
+    of a narrower v to 0."""
+    for counter in _COUNTERS + (_flash_ops.NARROW_V_LAUNCHES,):
         for name in counter:
             counter[name] = 0
 

@@ -12,8 +12,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0,
                   softcap: float = 0.0,
                   scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,H,Tq,hd); k,v: (B,H,Tk,hd) (heads pre-broadcast for GQA);
-    ``scale``: the scores' factor (``None``: 1 / sqrt(hd))."""
+    """q, k: (B,H,Tq|Tk,hd); v: (B,H,Tk,hdv) (heads pre-broadcast for
+    GQA) → (B,H,Tq,hdv); ``scale``: the scores' factor (``None``:
+    1 / sqrt(hd))."""
     hd = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     s = s / np.sqrt(hd) if scale is None else s * scale

@@ -19,6 +19,18 @@ Decode writes the new key and value into the cache **in place** (an index
 copy at a slot computed on the device, so no host sync) and returns the
 same tensors with ``pos + 1``; the reference returns new arrays.  A caller
 that keeps a cache across steps must clone it.
+
+**Latent attention** (``mla``, DeepSeek-V2/V3's MLA; :func:`mla`): per
+token ``q = h W_q`` (H heads of ``[q_nope | q_pe]``), ``[c | k_pe] = h
+W_kva``, ``c = rms(c, kv_norm)``, ``[k_nope | v] = c W_kvb`` per head;
+``q_pe`` and the one-head ``k_pe`` take rope, ``k = [k_nope | k_pe]``
+broadcast over the heads, and the causal softmax of ``q k^T`` (scale
+1 / sqrt(head_dim) by default) weighs v, whose head dim is narrower than
+q's and k's.  Train and prefill run the full sequence through flash on
+the card (its 192 / 128 template).  The cache is the latent: ``c`` and the
+rotated ``k_pe`` a token (:class:`MLACache`), and a decode step writes its
+token's into it in place, then decompresses every slot's k and v through
+``W_kvb`` and attends over them with the plain ``_sdpa``.
 """
 
 from __future__ import annotations
@@ -28,9 +40,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope, dense, init_dense, softcap
+from repro_torch.models.layers import (apply_rope, dense, init_dense,
+                                       rms_norm, softcap)
 
 class KVCache(NamedTuple):
     k: torch.Tensor       # (B, S, n_kv, head_dim)
@@ -74,8 +88,8 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int, dtype):
 
 def _sdpa(q, k, v, bias, n_rep: int, cap: float,
           scale: Optional[float] = None):
-    """q: (B,Tq,Hq,hd); k,v: (B,Tk,Hkv,hd); bias: (Tq,Tk); ``scale``: the
-    scores' factor (``None``: 1 / sqrt(hd))."""
+    """q, k: (B,Tq|Tk,Hq|Hkv,hd); v: (B,Tk,Hkv,hdv); bias: (Tq,Tk);
+    ``scale``: the scores' factor (``None``: 1 / sqrt(hd))."""
     b, tq, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, tq, hkv, n_rep, hd)
@@ -86,7 +100,7 @@ def _sdpa(q, k, v, bias, n_rep: int, cap: float,
     logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
-    return out.reshape(b, tq, hq, hd)
+    return out.reshape(b, tq, hq, v.shape[-1])
 
 
 # Sequences longer than this use the blockwise online-softmax path on the
@@ -109,7 +123,7 @@ def _sdpa_chunked(q, k, v, *, n_rep: int, cap: float, causal: bool,
     skip key blocks that are entirely masked, so FLOPs follow the mask.
     """
     b, tq, hq, hd = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
+    tk, hkv, hdv = k.shape[1], k.shape[2], v.shape[-1]
     if chunk is None:
         chunk = min(tk, max(1024, tk // 16))
     while tk % chunk:
@@ -129,7 +143,7 @@ def _sdpa_chunked(q, k, v, *, n_rep: int, cap: float, causal: bool,
                        device=q.device)
         l = torch.zeros((b, hkv, n_rep, qc), dtype=torch.float32,
                         device=q.device)
-        acc = torch.zeros((b, hkv, n_rep, qc, hd), dtype=torch.float32,
+        acc = torch.zeros((b, hkv, n_rep, qc, hdv), dtype=torch.float32,
                           device=q.device)
         for ki in range(n_kv):
             k_lo, k_hi = ki * chunk, (ki + 1) * chunk
@@ -150,9 +164,29 @@ def _sdpa_chunked(q, k, v, *, n_rep: int, cap: float, causal: bool,
                 "bgrqk,bkgd->bgrqd", p.to(q.dtype), vv).float()
             m = m_new
         out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qc, hq, hd)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, qc, hq, hdv)
                     .to(q.dtype))
     return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+
+
+def _full(q, k, v, cfg: ArchConfig, pos: torch.Tensor, *, window: int,
+          n_rep: int) -> torch.Tensor:
+    """Full-sequence attention of q, k (B, T, H | Hkv, hd) and v (B, T,
+    Hkv, hdv): the flash kernel on the card; on the CPU the plain
+    ``_sdpa`` up to ``FULL_ATTN_MAX``, the blockwise one above."""
+    scale = cfg.attention_multiplier
+    if q.is_cuda:
+        return flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=cfg.causal,
+                               window=window, softcap=cfg.attn_logit_softcap,
+                               scale=scale).transpose(1, 2)
+    if q.shape[1] > FULL_ATTN_MAX:
+        return _sdpa_chunked(q, k, v, n_rep=n_rep,
+                             cap=cfg.attn_logit_softcap, causal=cfg.causal,
+                             window=window, scale=scale)
+    bias = _mask_bias(pos, pos, causal=cfg.causal, window=window,
+                      dtype=torch.float32)
+    return _sdpa(q, k, v, bias, n_rep, cfg.attn_logit_softcap, scale)
 
 
 def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -179,20 +213,7 @@ def attention(params, x: torch.Tensor, cfg: ArchConfig, *,
     if cfg.position_embedding == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    scale = cfg.attention_multiplier
-    if x.is_cuda:
-        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=cfg.causal,
-                              window=window, softcap=cfg.attn_logit_softcap,
-                              scale=scale).transpose(1, 2)
-    elif t > FULL_ATTN_MAX:
-        out = _sdpa_chunked(q, k, v, n_rep=n_rep,
-                            cap=cfg.attn_logit_softcap,
-                            causal=cfg.causal, window=window, scale=scale)
-    else:
-        bias = _mask_bias(pos, pos, causal=cfg.causal, window=window,
-                          dtype=torch.float32)
-        out = _sdpa(q, k, v, bias, n_rep, cfg.attn_logit_softcap, scale)
+    out = _full(q, k, v, cfg, pos, window=window, n_rep=n_rep)
     out = out.reshape(b, t, cfg.q_dim)
     new_cache = None
     if mode == "prefill":
@@ -252,3 +273,115 @@ def _decode(q, k, v, cache: Optional[KVCache], cfg: ArchConfig, window: int,
                 cfg.attention_multiplier)
     return out.reshape(b, t, cfg.q_dim), KVCache(k=cache.k, v=cache.v,
                                                  pos=pos + 1)
+
+
+# ---------------------------------------------------------------------------
+# latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+
+class MLACache(NamedTuple):
+    c: torch.Tensor       # (B, S, kv_lora_rank): the normed latent
+    k_pe: torch.Tensor    # (B, S, qk_rope_head_dim): the rotated rope key
+    pos: torch.Tensor     # () int32 — number of tokens already cached
+
+
+def init_mla_params(gen, cfg: ArchConfig, dtype=torch.float32,
+                    device="cpu"):
+    """``wq (d, H (nope + rope))``, ``wkv_a (d, r + rope)``, ``kv_norm
+    (r,)`` (zeros: the norm scales by ``1 + s``), ``wkv_b (r, H (nope +
+    v))`` with each head's ``[k_nope | v]`` columns side by side, ``wo
+    (H v, d)``."""
+    h, r, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    return {"wq": init_dense(gen, cfg.d_model, cfg.q_dim, dtype, device),
+            "wkv_a": init_dense(gen, cfg.d_model, r + dr, dtype, device),
+            "kv_norm": torch.zeros((r,), dtype=dtype, device=device),
+            "wkv_b": init_dense(gen, r, h * (cfg.qk_nope_head_dim
+                                             + cfg.v_head_dim), dtype,
+                                device),
+            "wo": init_dense(gen, h * cfg.v_head_dim, cfg.d_model, dtype,
+                             device)}
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.float32, device="cpu") -> MLACache:
+    """Zeros: ``kv_lora_rank + qk_rope_head_dim`` numbers a token."""
+    return MLACache(
+        c=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                      device=device),
+        k_pe=torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                         dtype=dtype, device=device),
+        pos=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def _mla_project(params, x: torch.Tensor, cfg: ArchConfig,
+                 pos: torch.Tensor):
+    """q (B, T, H, nope + rope) with its rope part rotated, the normed
+    latent c (B, T, r) and the rotated one-head rope key (B, T, rope)."""
+    b, t, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = dense(x, params["wq"]).reshape(b, t, cfg.num_heads, dn + dr)
+    q_nope, q_pe = q.split([dn, dr], dim=-1)
+    q = torch.cat([q_nope, apply_rope(q_pe, pos, cfg.rope_theta)], dim=-1)
+    c, k_pe = dense(x, params["wkv_a"]).split([cfg.kv_lora_rank, dr],
+                                               dim=-1)
+    c = rms_norm(c, params["kv_norm"], cfg.norm_eps)
+    k_pe = apply_rope(k_pe[:, :, None], pos, cfg.rope_theta)[:, :, 0]
+    return q, c, k_pe
+
+
+def _mla_keys(params, c: torch.Tensor, k_pe: torch.Tensor,
+              cfg: ArchConfig):
+    """k (B, S, H, nope + rope): each head's ``c W_kvb`` nope part beside
+    the shared rope key; v (B, S, H, v_head_dim), a view."""
+    b, s, _ = c.shape
+    h, dn, dr = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    kv = dense(c, params["wkv_b"]).reshape(b, s, h, dn + cfg.v_head_dim)
+    k_nope, v = kv.split([dn, cfg.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_pe[:, :, None].expand(b, s, h, dr)], dim=-1)
+    return k, v
+
+
+def mla(params, x: torch.Tensor, cfg: ArchConfig, *, mode: str,
+        cache: Optional[MLACache] = None
+        ) -> Tuple[torch.Tensor, Optional[MLACache]]:
+    """Returns (output (B, T, d_model), the latent cache or None); spans
+    ``mla.attention`` (forward and recompute) and ``mla.backward``."""
+    with tracing.span("mla.attention"):
+        out, new_cache = _mla(params, x, cfg, mode, cache)
+    tracing.backward_span("mla.backward", x, (out,))
+    return out, new_cache
+
+
+def _mla(params, x, cfg: ArchConfig, mode: str, cache):
+    b, t, _ = x.shape
+    width = cfg.num_heads * cfg.v_head_dim
+    if mode == "decode":
+        if cache is None or t != 1:
+            raise ValueError(f"decode takes one token and a cache, got "
+                             f"T = {t} and cache {type(cache).__name__}")
+        pos = cache.pos
+        q, c, k_pe = _mla_project(params, x, cfg, pos[None][None, :])
+        s = cache.c.shape[1]
+        index = pos.clamp(max=s - 1).reshape(1).long()
+        cache.c.index_copy_(1, index, c)
+        cache.k_pe.index_copy_(1, index, k_pe)
+        k, v = _mla_keys(params, cache.c, cache.k_pe, cfg)
+        slots = torch.arange(s, device=x.device)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        neg = torch.full((), -1e30, dtype=torch.float32, device=x.device)
+        bias = torch.where(slots <= pos, zero, neg)[None, :]
+        out = _sdpa(q, k, v, bias, 1, cfg.attn_logit_softcap,
+                    cfg.attention_multiplier)
+        return dense(out.reshape(b, t, width), params["wo"]), \
+            MLACache(c=cache.c, k_pe=cache.k_pe, pos=pos + 1)
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"unknown attention mode {mode!r}")
+    pos = torch.arange(t, device=x.device)
+    q, c, k_pe = _mla_project(params, x, cfg, pos)
+    k, v = _mla_keys(params, c, k_pe, cfg)
+    out = _full(q, k, v, cfg, pos, window=0, n_rep=1).reshape(b, t, width)
+    new_cache = MLACache(c=c, k_pe=k_pe, pos=torch.full(
+        (), t, dtype=torch.int32, device=x.device)) \
+        if mode == "prefill" else None
+    return dense(out, params["wo"]), new_cache

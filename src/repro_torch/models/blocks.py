@@ -1,10 +1,13 @@
 """Per-layer block: init / apply for every layer kind (the attention kinds,
-mLSTM, sLSTM, the RG-LRU and Mamba-2), with a dense MLP or, when the config
-has experts, the MoE MLP (``models/moe.py``), whose router load-balance
-loss is the block's aux, plus a shared SwiGLU expert where the config has
-one (``shared_d_ff``).  xLSTM configs have ``d_ff = 0``: their blocks carry
-their own up / down projections and no MLP.  Each branch is added to the
-residual stream times ``cfg.residual_multiplier`` (granite 4.0's muP).
+latent attention, mLSTM, sLSTM, the RG-LRU and Mamba-2), with the MLP
+that ``cfg.mlp_kinds()`` gives the layer: a dense MLP (the leading
+``first_dense_layers`` of an MoE model take ``dense_d_ff``) or the MoE MLP
+(``models/moe.py``), whose router load-balance loss is the block's aux,
+plus a shared SwiGLU expert where the config has one (``shared_d_ff``).
+``apply_block`` reads which from the block's parameters.  xLSTM configs
+have ``d_ff = 0``: their blocks carry their own up / down projections and
+no MLP.  Each branch is added to the residual stream times
+``cfg.residual_multiplier`` (granite 4.0's muP).
 
 Every block is addressable individually — DynaComm schedules transmissions
 layer by layer.
@@ -16,12 +19,13 @@ from typing import Any, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, LayerKind
+from repro_torch.configs.base import ArchConfig, LayerKind, MlpKind
 from repro_torch.models import attention, ssm
 from repro_torch.models.layers import apply_mlp, init_mlp, rms_norm
 from repro_torch.models.moe import apply_moe, init_moe_params
 
 ATTN_KINDS = ("global_attn", "local_attn")
+MLA = "mla"
 # recurrent kind -> (its parameter key's init, its apply)
 RECURRENT = {"mlstm": (ssm.init_mlstm_params, ssm.apply_mlstm),
              "slstm": (ssm.init_slstm_params, ssm.apply_slstm),
@@ -30,29 +34,33 @@ RECURRENT = {"mlstm": (ssm.init_mlstm_params, ssm.apply_mlstm),
 
 
 def _check(cfg: ArchConfig, kind: LayerKind) -> None:
-    if kind not in ATTN_KINDS and kind not in RECURRENT:
+    if kind not in ATTN_KINDS and kind != MLA and kind not in RECURRENT:
         raise ValueError(kind)
 
 
 def init_block(gen, cfg: ArchConfig, kind: LayerKind, dtype=torch.float32,
-               device="cpu"):
+               device="cpu", *, mlp: MlpKind):
+    """One block's parameters; ``mlp``: the layer's entry of
+    ``cfg.mlp_kinds()``."""
     _check(cfg, kind)
     p: dict = {"norm1": torch.zeros((cfg.d_model,), dtype=dtype,
                                     device=device)}
     if kind in ATTN_KINDS:
         p["attn"] = attention.init_attn_params(gen, cfg, dtype, device)
+    elif kind == MLA:
+        p["mla"] = attention.init_mla_params(gen, cfg, dtype, device)
     else:
         p[kind] = RECURRENT[kind][0](gen, cfg, dtype, device)
-    if cfg.d_ff > 0:
+    if mlp != "none":
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-        if cfg.is_moe:
+        if mlp == "moe":
             p["moe"] = init_moe_params(gen, cfg, dtype, device)
             if cfg.shared_d_ff:
                 p["shared"] = init_mlp(gen, cfg.d_model, cfg.shared_d_ff,
                                        True, dtype, device)
         else:
-            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
-                                dtype, device)
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.dense_d_ff or cfg.d_ff,
+                                cfg.gated_mlp, dtype, device)
     return p
 
 
@@ -65,6 +73,9 @@ def init_block_cache(cfg: ArchConfig, kind: LayerKind, batch: int,
         return attention.init_cache(cfg, batch, max_len,
                                     local=(kind == "local_attn"),
                                     dtype=dtype, device=device)
+    if kind == MLA:
+        return attention.init_mla_cache(cfg, batch, max_len, dtype=dtype,
+                                        device=device)
     if kind == "rglru":
         return ssm.init_rglru_state(cfg, batch, dtype=dtype, device=device)
     if kind == "mamba2":
@@ -84,13 +95,16 @@ def apply_block(params, x: torch.Tensor, cfg: ArchConfig, kind: LayerKind,
         out, new_cache = attention.attention(
             params["attn"], h, cfg, local=(kind == "local_attn"), mode=mode,
             cache=cache)
+    elif kind == MLA:
+        out, new_cache = attention.mla(params["mla"], h, cfg, mode=mode,
+                                       cache=cache)
     else:
         out, new_cache = RECURRENT[kind][1](params[kind], h, cfg, mode=mode,
                                             state=cache)
     x = _residual(x, out, cfg)
-    if cfg.d_ff > 0:
+    if "norm2" in params:
         h2 = rms_norm(x, params["norm2"], cfg.norm_eps)
-        if cfg.is_moe:
+        if "moe" in params:
             out2, aux = apply_moe(params["moe"], h2, cfg)
             if "shared" in params:
                 out2 = out2 + apply_mlp(params["shared"], h2, cfg.activation)

@@ -53,8 +53,9 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None,
         # audio: frames arrive pre-embedded (stub frontend); learn a proj
         p["embed"]["in_proj"] = init_dense(gen, cfg.d_model, cfg.d_model,
                                            dtype, device)
-    for kind in cfg.layer_kinds():
-        p["layers"].append(blocks.init_block(gen, cfg, kind, dtype, device))
+    for kind, mlp in zip(cfg.layer_kinds(), cfg.mlp_kinds()):
+        p["layers"].append(blocks.init_block(gen, cfg, kind, dtype, device,
+                                             mlp=mlp))
     p["final"]["norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                      device=device)
     if not cfg.tie_embeddings:
@@ -119,6 +120,14 @@ def apply_final(cfg: ArchConfig, final_tree: Any, embed_tree: Any,
     labels padded with ``-1`` over prepended vision tokens)."""
     logits = head_logits(cfg, final_tree, embed_tree, x)
     return cross_entropy(logits, padded_labels(cfg, logits, batch["labels"]))
+
+
+def aux_cotangent(cfg: ArchConfig, layer: int,
+                  aux_ct: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The cotangent of sched layer ``layer``'s aux in :func:`layer_vjp`:
+    ``aux_ct`` where the block routes to experts, ``None`` where it has a
+    dense MLP (its aux is a constant zero, which carries no graph)."""
+    return aux_ct if cfg.mlp_kinds()[layer - 1] == "moe" else None
 
 
 def layer_vjp(fn: Callable, primals: Sequence[Any], cotangent) -> List[Any]:

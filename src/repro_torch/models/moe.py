@@ -18,6 +18,17 @@ kept assignments: an assignment to an expert held elsewhere is dropped
 here, and the layer's output is the held experts' part of the whole
 layer's.  The load-balance loss is the whole router's.
 
+**Sigmoid routing** (``cfg.router_scoring == "sigmoid"``, DeepSeek-V3's
+``noaux_tc`` with one group): the scores are ``sigmoid(logits)``; the
+experts are the top k of the scores plus the layer's correction bias
+(``params["bias"]``, which only chooses: it has no gradient path); the
+weights are the chosen experts' unshifted scores over their sum, times
+``cfg.routed_scaling``.  The aux loss is the Switch loss of the scores
+normalised over the experts, per sequence where ``cfg.seq_aux`` says so
+(the mean over the batch's sequences).  DeepSeek-V3's between-step
+update of the bias is not part of the gradient step, and the port leaves
+it out.
+
 Three rules keep the port's routing the reference's, integer for integer,
 and the card's result the same from run to run:
 
@@ -57,7 +68,8 @@ def init_moe_params(gen, cfg: ArchConfig, dtype=torch.float32,
                     device="cpu"):
     """``router (d, E)``, ``up (E', d, f)``, ``down (E', f, d)`` and, when
     gated, ``gate (E', d, f)``, for the E' experts held; each expert draws
-    its own ``init_dense``."""
+    its own ``init_dense``.  Sigmoid routing adds the correction ``bias
+    (E,)``, zeros (DeepSeek-V3's initial value)."""
     e, d, f = cfg.num_held_experts, cfg.d_model, cfg.d_ff
 
     def expert_stack(din, dout):
@@ -68,6 +80,9 @@ def init_moe_params(gen, cfg: ArchConfig, dtype=torch.float32,
          "down": expert_stack(f, d)}
     if cfg.gated_mlp:
         p["gate"] = expert_stack(d, f)
+    if cfg.router_scoring == "sigmoid":
+        p["bias"] = torch.zeros((cfg.num_experts,), dtype=dtype,
+                                device=device)
     return p
 
 
@@ -78,6 +93,17 @@ def router_load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
     frac = counts / torch.clamp(counts.sum(), min=1.0)
     mean_prob = probs.mean(dim=0)
     return num_experts * (frac * mean_prob).sum()
+
+
+def sequence_load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
+                               num_experts: int, batch: int) -> torch.Tensor:
+    """The Switch loss of each of ``batch`` sequences (``probs (B T, E)``,
+    ``expert_idx (B T, k)``, sequence-major), their mean."""
+    counts = F.one_hot(expert_idx.reshape(batch, -1), num_experts).float() \
+        .sum(dim=1)                                             # (B, E)
+    frac = counts / torch.clamp(counts.sum(dim=-1, keepdim=True), min=1.0)
+    mean_prob = probs.reshape(batch, -1, num_experts).mean(dim=1)
+    return (num_experts * (frac * mean_prob).sum(dim=-1)).mean()
 
 
 class Routing(NamedTuple):
@@ -120,9 +146,17 @@ def apply_moe(params, x: torch.Tensor, cfg: ArchConfig
     xf = x.reshape(n, d)
 
     logits = dense(xf, params["router"]).float()                # (N, E)
-    probs = torch.softmax(logits, dim=-1)
-    r = route(probs, cfg, cap)
-    top_p = r.top_p.to(x.dtype)
+    if cfg.router_scoring == "sigmoid":
+        scores = torch.sigmoid(logits)
+        r = route((scores + params["bias"].float()).detach(), cfg, cap)
+        top_p = scores.gather(1, r.top_e)
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True) * cfg.routed_scaling
+        probs = scores / scores.sum(dim=-1, keepdim=True)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        r = route(probs, cfg, cap)
+        top_p = r.top_p
+    top_p = top_p.to(x.dtype)
 
     # scatter tokens into the dispatch buffer (dropped rows add zeros)
     src = torch.where(r.keep[:, None], xf.repeat_interleave(k, dim=0), 0.0)
@@ -145,7 +179,9 @@ def apply_moe(params, x: torch.Tensor, cfg: ArchConfig
     w = top_p.reshape(-1) * r.keep.to(x.dtype)
     combined = (gathered * w[:, None]).reshape(n, k, d).sum(dim=1)
 
-    aux = router_load_balance_loss(probs, r.top_e, cfg.num_experts)
+    aux = sequence_load_balance_loss(probs, r.top_e, cfg.num_experts, b) \
+        if cfg.seq_aux else \
+        router_load_balance_loss(probs, r.top_e, cfg.num_experts)
     out = combined.reshape(b, t, d)
     tracing.backward_span("moe.backward", x, (out, aux))
     return out, aux

@@ -27,9 +27,23 @@ def _attn_flops(cfg: ArchConfig, b: int, t: int, kv_len: int, local: bool) -> fl
     return proj + scores + out
 
 
+def _mla_flops(cfg: ArchConfig, b: int, t: int, kv_len: int,
+               decode: bool) -> float:
+    """Latent attention: the q and latent projections, ``W_kvb`` over the
+    tokens it decompresses (a decode step: every cached slot), the scores
+    over the q / k head dim and P V over v's, the output projection."""
+    h, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    proj = 2.0 * b * t * cfg.d_model * (cfg.q_dim + r + dr)
+    kv_b = 2.0 * b * (kv_len if decode else t) * r * h * (dn + dv)
+    scores = 2.0 * b * h * t * kv_len * (cfg.head_dim + dv)
+    out = 2.0 * b * t * h * dv * cfg.d_model
+    return proj + kv_b + scores + out
+
+
 def _mlp_flops(cfg: ArchConfig, b: int, t: int) -> float:
     mats = 3 if cfg.gated_mlp else 2
-    return 2.0 * b * t * cfg.d_model * cfg.d_ff * mats
+    return 2.0 * b * t * cfg.d_model * (cfg.dense_d_ff or cfg.d_ff) * mats
 
 
 def _moe_flops(cfg: ArchConfig, b: int, t: int) -> float:
@@ -93,7 +107,9 @@ def _rglru_flops(cfg: ArchConfig, b: int, t: int) -> float:
 
 
 def block_forward_flops(cfg: ArchConfig, kind: str, b: int, t: int,
-                        kv_len: int, mode: str) -> float:
+                        kv_len: int, mode: str, mlp: str) -> float:
+    """One block's forward: its mixer ``kind`` and its MLP ``mlp`` (the
+    layer's entries of ``cfg.layer_kinds()`` and ``cfg.mlp_kinds()``)."""
     if kind in ("global_attn", "local_attn"):
         f = _attn_flops(cfg, b, t, kv_len, kind == "local_attn")
     elif kind == "mlstm":
@@ -104,10 +120,14 @@ def block_forward_flops(cfg: ArchConfig, kind: str, b: int, t: int,
         f = _rglru_flops(cfg, b, t)
     elif kind == "mamba2":
         f = _mamba2_flops(cfg, b, t, decode=(mode == "decode"))
+    elif kind == "mla":
+        f = _mla_flops(cfg, b, t, kv_len, decode=(mode == "decode"))
     else:
         raise ValueError(kind)
-    if cfg.d_ff > 0:
-        f += _moe_flops(cfg, b, t) if cfg.is_moe else _mlp_flops(cfg, b, t)
+    if mlp == "moe":
+        f += _moe_flops(cfg, b, t)
+    elif mlp == "dense":
+        f += _mlp_flops(cfg, b, t)
     return f
 
 
@@ -125,11 +145,12 @@ def layer_profiles(cfg: ArchConfig, shape: InputShape,
 
     profs = [LayerProfile(name="embed", param_bytes=pbytes[0],
                           flops_fwd=2.0 * b * t * cfg.d_model)]
-    for i, kind in enumerate(kinds):
+    for i, (kind, mlp) in enumerate(zip(kinds, cfg.mlp_kinds())):
         profs.append(LayerProfile(
             name=f"block{i}:{kind}",
             param_bytes=pbytes[1 + i],
-            flops_fwd=block_forward_flops(cfg, kind, b, t, kv_len, shape.mode),
+            flops_fwd=block_forward_flops(cfg, kind, b, t, kv_len, shape.mode,
+                                          mlp),
         ))
     head_flops = 2.0 * b * t * cfg.d_model * cfg.vocab_size
     profs.append(LayerProfile(name="head", param_bytes=pbytes[-1],
@@ -148,6 +169,6 @@ def model_flops_per_token(cfg: ArchConfig) -> float:
         # a share of the experts sees top_k x held / E of a token's
         active = cfg.top_k * cfg.num_held_experts / cfg.num_experts
         inactive = (cfg.num_held_experts - active) * per_expert \
-            * cfg.num_layers
+            * cfg.mlp_kinds().count("moe")
         n = n - inactive
     return 6.0 * n

@@ -333,7 +333,8 @@ class PipelineTrainer:
                 g, ct_h = model_lib.layer_vjp(
                     lambda p, hh, _k=kinds[l - 1]: model_lib.apply_train_block(
                         cfg, p, hh, _k),
-                    (trees[l], acts.pop(l)), (ct_h, aux_ct))
+                    (trees[l], acts.pop(l)),
+                    (ct_h, model_lib.aux_cotangent(cfg, l, aux_ct)))
             _accumulate(acc, l, flatten_tree(g, self.specs[l]))
             del g
         ct_out = None if has_embed else flatten_tree(ct_h,

@@ -122,7 +122,7 @@ def _measure(cfg, layout, state, batch, hook, aux_weight: float,
             lambda l=l, kind=kind: block(trees[l], h0, kind)), calls, device)
         _sample(hook, "bc", l, lambda l=l, kind=kind: vjp(
             lambda p, hh: block(p, hh, kind), (trees[l], h0),
-            (ct_h, aux_ct)), calls, device)
+            (ct_h, model_lib.aux_cotangent(cfg, l, aux_ct))), calls, device)
     _sample(hook, "fc", Ls - 1, fwd(
         lambda: final(trees[Ls - 1], trees[0], h0)), calls, device)
     _sample(hook, "bc", Ls - 1, lambda: vjp(

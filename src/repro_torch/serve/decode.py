@@ -3,7 +3,8 @@ recurrent states.
 
 ``prefill`` runs the full-sequence forward (the flash kernel and the
 RG-LRU scan on the card) and returns the last position's logits and every
-block's cache, the global-attention caches grown to ``max_len``;
+block's cache, the global-attention and latent (MLA) caches grown to
+``max_len``;
 ``build_decode_step`` gives the one-token ``serve_step``;
 ``batched_generate`` runs both for a batch of same-length prompts.
 
@@ -39,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch import tracing, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as model_lib
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import KVCache, MLACache
 from repro_torch.serve import graphs
 
 # called after the prefill (step 0) and after each decode step i (1..K),
@@ -52,6 +53,8 @@ StepHook = Callable[[int, torch.Tensor, List[Any]], None]
 
 
 def _grows(kind: str, cache: Any, max_len: int) -> bool:
+    if kind == "mla":
+        return cache.c.shape[1] < max_len
     return kind == "global_attn" and isinstance(cache, KVCache) \
         and cache.k.shape[1] < max_len
 
@@ -71,7 +74,8 @@ def _empty_caches(cfg: ArchConfig, caches: List[Any], max_len: int
 
 def pad_caches(cfg: ArchConfig, caches: List[Any], max_len: int,
                out: Optional[List[Any]] = None) -> List[Any]:
-    """Grow global-attention KV caches to max_len (decode writes past t).
+    """Grow global-attention KV caches and latent caches to max_len
+    (decode writes past t).
     A local cache keeps the prefill's ``window`` slots.  With ``out``
     (``_empty_caches``' shapes) every leaf is written into ``out``'s
     instead, a grown cache's tail zeroed as ``F.pad`` zeroes it, and
@@ -86,8 +90,12 @@ def pad_caches(cfg: ArchConfig, caches: List[Any], max_len: int,
         return out
     grown = []
     for kind, c in zip(cfg.layer_kinds(), caches):
-        if _grows(kind, c, max_len):
-            pad = (0, 0, 0, 0, 0, max_len - c.k.shape[1])
+        if _grows(kind, c, max_len) and kind == "mla":
+            pad = (0, 0, 0, max_len - c.c.shape[1])        # (B, S, width)
+            c = MLACache(c=F.pad(c.c, pad), k_pe=F.pad(c.k_pe, pad),
+                         pos=c.pos)
+        elif _grows(kind, c, max_len):
+            pad = (0, 0, 0, 0, 0, max_len - c.k.shape[1])  # (B, S, H, hd)
             c = KVCache(k=F.pad(c.k, pad), v=F.pad(c.v, pad), pos=c.pos)
         grown.append(c)
     return grown

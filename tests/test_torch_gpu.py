@@ -145,6 +145,138 @@ def test_flash_gradient_is_the_plain_vjp(cuda):
         torch.testing.assert_close(a, x.grad, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", [
+    # (b, h, hkv, t, hd, hdv, causal)
+    (2, 16, 16, 4096, 192, 128, True),           # the Moonlight cell's call
+    (1, 16, 4, 333, 192, 128, True),             # GQA 16/4, ragged T
+    (1, 4, 2, 200, 192, 128, False),             # GQA, no mask
+    (1, 2, 1, 130, 160, 96, True),               # narrower, inside 192/128
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_split_template_vs_plain(cuda, case, dtype):
+    """Q K^T over the q / k head dim, P V over v's narrower one (latent
+    attention), against the plain attention; v a strided view of a wider
+    tensor, as MLA's decompression hands it over."""
+    b, h, hkv, t, hd, hdv, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(b, t, h, hd, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, t, hkv, hd, generator=gen, device=cuda).to(dtype)
+    kv = torch.randn(b, t, hkv, 128 + hdv, generator=gen,
+                     device=cuda).to(dtype)
+    args = (q.transpose(1, 2), k.transpose(1, 2),
+            kv[..., 128:].transpose(1, 2), causal, 0, 0.0)
+    before = launch_counts()["flash_attention_fwd"]
+    got = flash_ops.flash_attention(*args)
+    assert launch_counts()["flash_attention_fwd"] == before + 1
+    assert got.shape == (b, h, t, hdv)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), flash_ops._ref_fwd(*args).float(),
+                               atol=tol, rtol=0)
+
+
+def test_flash_split_template_refuses_what_it_cannot_hold(cuda):
+    q = torch.randn(1, 2, 64, 256, device=cuda)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q, q[..., :128])
+    q = torch.randn(1, 2, 64, 192, device=cuda)
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, q, torch.randn(1, 2, 64, 160,
+                                                    device=cuda))
+
+
+def test_flash_split_gradient_is_the_plain_vjp(cuda):
+    q, k = (torch.randn(1, 4, 96, 192, device=cuda, requires_grad=True)
+            for _ in range(2))
+    v = torch.randn(1, 4, 96, 128, device=cuda, requires_grad=True)
+    (flash_ops.flash_attention(q, k, v) ** 2).sum().backward()
+    got = [x.grad.clone() for x in (q, k, v)]
+    for x in (q, k, v):
+        x.grad = None
+    (flash_ops._ref_fwd(q, k, v, True, 0, 0.0) ** 2).sum().backward()
+    for a, x in zip(got, (q, k, v)):
+        torch.testing.assert_close(a, x.grad, atol=1e-5, rtol=1e-5)
+
+
+# The equal-width instances' outputs at fixed inputs (a CPU generator's
+# draws, moved to the card), as SHA-256 of their bytes: read from the
+# kernel before the 192 / 128 template joined it, and the same from the
+# kernel with it (H100 80GB HBM3, CUDA 12.8's nvcc, torch 2.11).  A change
+# that moves a bit of hd 64, 80 / 128 or 256 fails here; another nvcc may
+# compile other bits, and then the digests are read again from the kernel
+# as it was.
+EQUAL_WIDTH_DIGESTS = {
+    "(2, 32, 8, 1024, 64, True, 0, 'float32')":
+        "755ba381666d621ae35ccb1d2d68dcd913a414495c9e025d3a3f086cabe1ad67",
+    "(1, 16, 8, 777, 128, True, 0, 'float32')":
+        "37e013d261e3d4875b2da306ae42277187cd72de4ec771d2a7a50766f2d9e5a4",
+    "(1, 16, 16, 640, 80, False, 0, 'float32')":
+        "02f93dc3c185dd7cdd888bd127c0e198aff452419a0e95d1d35bd7df4c4aa183",
+    "(2, 10, 1, 1024, 256, True, 2048, 'float32')":
+        "a02d3fe76d8c64dcfb76218606e2da1bb423de466c8ed3d523334a669bde1265",
+    "(1, 4, 2, 300, 256, True, 128, 'bfloat16')":
+        "0bbde67903fc1dd1a358ee8c0b6744cb3afaa08f62b3da51018ba004fef3d21d",
+    "(1, 8, 4, 513, 64, True, 0, 'bfloat16')":
+        "503be83bbaefa54b71ebd02a8b8582c8b0f572a73c09db771fb930e4668b698d",
+}
+
+
+@pytest.mark.parametrize("case", list(EQUAL_WIDTH_DIGESTS))
+def test_flash_equal_width_instances_keep_their_bits(cuda, case):
+    import ast
+    import hashlib
+    b, h, hkv, t, hd, causal, window, dt = ast.literal_eval(case)
+    gen = torch.Generator().manual_seed(1000 + list(
+        EQUAL_WIDTH_DIGESTS).index(case))
+    dtype = getattr(torch, dt)
+    q = torch.randn(b, h, t, hd, generator=gen).to(dtype).to(cuda)
+    k, v = (torch.randn(b, hkv, t, hd, generator=gen).to(dtype).to(cuda)
+            for _ in range(2))
+    out = flash_ops.flash_attention(q, k, v, causal, window, 0.0)
+    digest = hashlib.sha256(out.contiguous().view(torch.uint8).cpu()
+                            .numpy().tobytes()).hexdigest()
+    assert digest == EQUAL_WIDTH_DIGESTS[case]
+
+
+def test_mla_layer_on_the_card_is_the_cpus(cuda):
+    """A reduced Moonlight's three blocks (the dense layer 0 and two MoE
+    layers, latent attention throughout) forward and backward on the card
+    against the CPU from one draw: every MLA call through the 192 / 128
+    template (q / k 24 and v 16 inside it), one launch a layer, each
+    counted as that template's; the loss
+    within 2e-5 of itself, gradients within 1e-4 of each leaf's largest
+    (float32 sums in other orders).  Every token routes to all 8 experts,
+    so no near-tie of the router can choose differently on the two
+    devices."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    cfg = dataclasses.replace(get_config("moonlight-16b-a3b").reduced(
+        d_model=64, vocab=128), num_layers=3, num_experts=8, top_k=8,
+        capacity_factor=8.0)
+    params = model.init_params(cfg, torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, 128, (2, 40),
+                           generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": tokens, "labels": tokens.roll(1, 1)}
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree.tree_map(lambda x: x.to(dev).requires_grad_(), params)
+        reset_launch_counts()
+        loss = model.train_loss(cfg, p, {k: v.to(dev)
+                                         for k, v in batch.items()})
+        launches = (launch_counts()["flash_attention_fwd"],
+                    flash_ops.NARROW_V_LAUNCHES["flash_attention_fwd@mla"])
+        grads = torch.autograd.grad(loss, tree.leaves(p), allow_unused=True,
+                                    materialize_grads=True)
+        out[str(dev)] = (loss.item(), [g.cpu() for g in grads], launches)
+    (l_cpu, g_cpu, n_cpu), (l_card, g_card, n_card) = out.values()
+    assert (n_cpu, n_card) == ((0, 0), (3, 3))
+    assert abs(l_cpu - l_card) <= 2e-5 * abs(l_cpu)
+    for a, b in zip(g_cpu, g_card):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(a.abs().max()), 1e-30)
+
+
 def test_zero_smoke_config_runs_through_the_kernels(cuda):
     from repro_torch.runtime import RuntimeConfig, build_runtime
     rt = build_runtime(RuntimeConfig.load(os.path.join(
@@ -938,7 +1070,7 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda):
     from repro_torch.models import blocks, moe
     cfg = _moe_config()
     params = blocks.init_block(torch.Generator().manual_seed(0), cfg,
-                               "global_attn")
+                               "global_attn", mlp="moe")
     x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator()
                     .manual_seed(1))
     ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
@@ -1125,7 +1257,8 @@ def test_xlstm_block_on_the_card_matches_the_cpu(cuda, kind):
     from repro_torch.models import blocks
     cfg = dataclasses.replace(get_config("xlstm-350m").reduced(),
                               num_layers=8)
-    params = blocks.init_block(torch.Generator().manual_seed(0), cfg, kind)
+    params = blocks.init_block(torch.Generator().manual_seed(0), cfg, kind,
+                               mlp="none")
     x = torch.randn(2, 320, cfg.d_model,
                     generator=torch.Generator().manual_seed(1))
     ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))

@@ -254,6 +254,44 @@ def test_tracing_changes_no_bit_of_the_hybrids_training(tmp_path):
     assert _equal(plain["flat_params"], traced["flat_params"])
 
 
+def _mla_cfg():
+    """Moonlight's two reduced blocks (4 sched layers, as ``PLAN``): the
+    dense layer 0 and an MoE layer of 8 experts, top-2, both latent
+    attention."""
+    return _cfg("moonlight-16b-a3b", num_experts=8, top_k=2)
+
+
+def test_mla_spans_attention_and_backward(tmp_path):
+    """Each latent-attention layer opens ``mla.attention`` twice a step
+    (the forward, inside ``zero.forward``, and the recompute, inside
+    ``zero.backward``); its backward is one ``mla.backward`` span inside
+    ``zero.backward``."""
+    cfg = _mla_cfg()
+    assert (cfg.layer_kinds(), cfg.mlp_kinds()) == (("mla", "mla"),
+                                                    ("dense", "moe"))
+    tr = _trainer(cfg)
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    _, spans, _ = _traced(lambda: tr.step(state, _batch(cfg)), tmp_path)
+    tracing.reset_counters()
+    counts = _counts(spans)
+    assert (counts["mla.attention"], counts["mla.backward"]) == (4, 2)
+    mixers = _named(spans, "mla.attention")
+    fwd, bwd = _named(spans, "zero.forward"), _named(spans, "zero.backward")
+    assert sum(_inside(m, fwd) for m in mixers) == 2
+    assert sum(_inside(m, bwd) for m in mixers) == 2
+    assert all(_inside(b, bwd) for b in _named(spans, "mla.backward"))
+
+
+def test_tracing_changes_no_bit_of_moonlights_training(tmp_path):
+    cfg = _mla_cfg()
+    plain, plain_losses = _two_steps(_trainer(cfg), cfg)
+    (traced, traced_losses), _, _ = _traced(
+        lambda: _two_steps(_trainer(cfg), cfg), tmp_path)
+    tracing.reset_counters()
+    assert _equal(plain_losses, traced_losses)
+    assert _equal(plain["flat_params"], traced["flat_params"])
+
+
 # ---------------------------------------------------------------------------
 # the run-time loop and the decode
 # ---------------------------------------------------------------------------
